@@ -1,0 +1,598 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
+``build/kernels/``), then runs five phases, each printing one JSON line:
+
+1. ``device``  — the card, its power limit and the kernel build time.
+2. ``kernels`` — each kernel against its plain PyTorch version on the
+   card (f32 within 2e-5 with TF32 off, bf16 within 2e-2, the gather
+   exactly), timed beside its bound, its plain version and a PyTorch
+   library call that computes the same function.
+3. ``serve``   — qwen7b at full width in bf16 (weights drawn on the card
+   from a seeded generator) serving 16 Table-1 requests through the
+   paged engine; every request must finish with its ``l_out`` tokens
+   and the decode-attention kernel must have run 32 times per C == 1
+   forward pass.
+4. ``pd``      — one request prefilled on engine A, exported, evicted and
+   imported into engine B: tokens identical to the colocated run, the
+   payload size as predicted, the page-gather kernel launched.
+5. ``parity``  — a 2-layer full-width qwen7b in f32: decode logits of
+   the kernel path against the plain path within 2e-4.
+
+Then it prints the card's ``nvidia-smi`` name and power limit, one JSON
+line with every kernel's numbers, and, last,
+``{"ok": true, "device": {...}}``.  Any failed check raises, so the
+script exits non-zero; it also exits non-zero, printing no result, when
+no CUDA card is visible or when it is run outside the repository.
+
+    python3 chip_smoke.py --profile
+
+instead traces one prefill chunk and two decode blocks of the same
+full-width engine with ``torch.profiler``, writes the gzipped chrome
+traces to ``build/profile/`` and prints the device's busy time, idle share and
+kernel time by name for each window.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import gzip
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
+F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
+
+ENGINE = dict(n_slots=8, max_len=2048, prefill_batch=4, page_size=16,
+              chunk_size=256, decode_block=8)
+N_REQUESTS = 16
+MAX_L_IN, MAX_L_OUT = 1536, 256
+PD_L_IN, PD_L_OUT = 1000, 24
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls,
+    from CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels
+# ---------------------------------------------------------------------------
+
+
+def attention_inputs(torch, dev, *, dtype, hq, hkv, poison=False,
+                     zero_row=False, b=8, d=128, ps=16, mp=128, seed=1):
+    """qwen7b's decode shape: B=8 slots of up to 2048 tokens in a pool
+    of B*MP pages of 16 tokens; kv_len drawn from [1, 2048]."""
+    rng = np.random.default_rng(seed)
+    n_pages = b * mp
+    kv_len = rng.integers(1, mp * ps + 1, size=b).astype(np.int32)
+    if zero_row:
+        kv_len[0] = 0
+    table = rng.permutation(n_pages).astype(np.int32).reshape(b, mp)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k = torch.randn(n_pages, hkv, ps, d, generator=g, device=dev)
+    v = torch.randn(n_pages, hkv, ps, d, generator=g, device=dev)
+    q = torch.randn(b, hq, d, generator=g, device=dev)
+    if poison:
+        # stale data at every offset past kv_len, unallocated (-1)
+        # entries past each sequence's last page
+        live = torch.zeros(n_pages, ps, dtype=torch.bool)
+        for i in range(b):
+            n = int(kv_len[i])
+            for t in range(n):
+                live[table[i, t // ps], t % ps] = True
+            table[i, -(-n // ps):] = -1
+        live = live.to(dev)[:, None, :, None]
+        k = torch.where(live, k, 1e3)
+        v = torch.where(live, v, 1e3)
+    return ([x.to(dtype).contiguous() for x in (q, k, v)]
+            + [torch.as_tensor(table, device=dev),
+               torch.as_tensor(kv_len, device=dev)])
+
+
+def kernels_phase(torch, dev):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, page_gather, ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cases = {}
+    for name, kw, tol in (
+        ("mha_bf16", dict(dtype=torch.bfloat16, hq=32, hkv=32), 2e-2),
+        ("mha_f32_poisoned", dict(dtype=torch.float32, hq=32, hkv=32,
+                                  poison=True), 2e-5),
+        ("gqa40_8_bf16", dict(dtype=torch.bfloat16, hq=40, hkv=8), 2e-2),
+        ("gqa40_8_f32_kvlen0", dict(dtype=torch.float32, hq=40, hkv=8,
+                                    zero_row=True), 2e-5),
+    ):
+        args = attention_inputs(torch, dev, **kw)
+        got = decode_attention.paged_decode_attention(*args)
+        want = ref.paged_decode_attention_ref(*args)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+        check(err <= tol, f"paged_decode_attention {name}: max abs err "
+                          f"{err} > {tol}")
+        if kw.get("zero_row"):
+            check(bool((got[0] == 0).all()), f"{name}: kv_len 0 row != 0")
+        cases[name] = {"max_abs_err": err, "tol": tol,
+                       "want_absmax": float(want.float().abs().max()),
+                       "want_std": float(want.float().std())}
+
+    # timing at the main path's decode shape and dtype
+    q, k, v, table, kv_len = attention_inputs(
+        torch, dev, dtype=torch.bfloat16, hq=32, hkv=32)
+    b, hq, d = q.shape
+    hkv, ps = k.shape[1], k.shape[2]
+    lens = kv_len.cpu().numpy().astype(np.int64)
+    itemsize = q.element_size()
+    att_bytes = (int(lens.sum()) * hkv * d * 2 * itemsize
+                 + 2 * q.numel() * itemsize + table.numel() * 4 + b * 4)
+    att_flops = 4 * int(lens.sum()) * hq * d
+    kc = ref.paged_gather(k, table)       # the library call's input
+    vc = ref.paged_gather(v, table)
+    mask = (torch.arange(kc.shape[2], device=dev)[None, :]
+            < kv_len[:, None].long())[:, None, None, :]
+    att = {
+        "ms": cuda_ms(torch, lambda: decode_attention.paged_decode_attention(
+            q, k, v, table, kv_len), 50),
+        "plain_ms": cuda_ms(torch, lambda: ref.paged_decode_attention_ref(
+            q, k, v, table, kv_len), 10),
+        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kc, vc, attn_mask=mask), 50),
+        "bytes": att_bytes, "flops": att_flops,
+        "bound_ms": 1e3 * max(att_bytes / HBM_BYTES_PER_S,
+                              att_flops / F32_FLOPS_PER_S),
+        "bound_by": ("bytes" if att_bytes / HBM_BYTES_PER_S
+                     >= att_flops / F32_FLOPS_PER_S else "operations"),
+        "max_abs_err": cases["mha_bf16"]["max_abs_err"],
+        "shape": {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "ps": ps,
+                  "MP": table.shape[1], "sum_kv_len": int(lens.sum()),
+                  "dtype": "bfloat16"},
+    }
+    del q, k, v, kc, vc, mask
+
+    # page gather: exactness with -1 ids, then time at the pd export shape
+    g = torch.Generator(device=dev).manual_seed(2)
+    n_l, n_pages, h = 32, 1024, 32
+    pages = torch.randn(n_l, n_pages, h, ps, d, generator=g, device=dev,
+                        dtype=torch.bfloat16)
+    ids = torch.tensor([5, -1, n_pages - 1, 0, -1, 17], dtype=torch.int32,
+                       device=dev)
+    exact = torch.equal(page_gather.page_gather(pages, ids),
+                        ref.page_gather_ref(pages, ids))
+    check(exact, "page_gather differs from its plain version")
+    m = -(-PD_L_IN // ps)
+    ids = torch.as_tensor(
+        np.random.default_rng(3).permutation(n_pages)[:m].astype(np.int32),
+        device=dev)
+    exact = torch.equal(page_gather.page_gather(pages, ids),
+                        ref.page_gather_ref(pages, ids))
+    check(exact, "page_gather differs from its plain version (timed shape)")
+    gat_bytes = 2 * n_l * m * h * ps * d * pages.element_size() + m * 4
+
+    def library_gather():
+        return pages.index_select(1, ids.long()).permute(
+            0, 2, 1, 3, 4).contiguous()
+
+    gat = {
+        "ms": cuda_ms(torch, lambda: page_gather.page_gather(pages, ids), 50),
+        "plain_ms": cuda_ms(torch, lambda: ref.page_gather_ref(pages, ids),
+                            20),
+        "library_ms": cuda_ms(torch, library_gather, 50),
+        "bytes": gat_bytes, "flops": 0,
+        "bound_ms": 1e3 * gat_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+        "max_abs_err": 0.0,
+        "shape": {"L": n_l, "NP": n_pages, "H": h, "ps": ps, "D": d, "M": m,
+                  "dtype": "bfloat16"},
+    }
+    del pages
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "paged_decode_attention": {**att,
+          "cases": cases}, "page_gather": gat})
+    return att, gat
+
+
+# ---------------------------------------------------------------------------
+# phase 3: serve
+# ---------------------------------------------------------------------------
+
+
+def table1_requests(vocab: int):
+    from repro_torch.core.request import FOUR_TASK_SET, TASKS, Request
+
+    rng = np.random.default_rng(SEED)
+    reqs = []
+    for i in range(N_REQUESTS):
+        spec = TASKS[FOUR_TASK_SET[i % len(FOUR_TASK_SET)]]
+        l_in, l_out = spec.sample_lengths(rng)
+        l_in, l_out = min(l_in, MAX_L_IN), min(l_out, MAX_L_OUT)
+        prompt = rng.integers(0, vocab, size=l_in).astype(np.int32)
+        reqs.append(Request.from_prompt(
+            i, prompt, l_out, task=spec.name, ttft_slo=spec.ttft_slo,
+            tpot_slo=spec.tpot_slo))
+    return reqs
+
+
+def c1_passes(engine) -> int:
+    """C == 1 forward passes the engine ran: one per decode iteration,
+    whether per-token or inside a fused K-block."""
+    return sum(k * n for k, n in engine.decode_block_hist.items())
+
+
+def serve_phase(torch, dev, model, init_s: float):
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    from repro_torch.serving.metrics import compute_metrics
+
+    cfg = model.cfg
+    engine = InferenceEngine(model, EngineConfig(**ENGINE))
+    reqs = table1_requests(cfg.vocab_size)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    steps = 0
+    time_by_kind: dict[str, float] = {}
+    steps_by_kind: dict[str, int] = {}
+    while engine.queue or engine.prefilling or engine.active:
+        ev = engine.step()
+        steps += 1
+        kind = ev["kind"]
+        time_by_kind[kind] = time_by_kind.get(kind, 0.0) + ev.get("time", 0.0)
+        steps_by_kind[kind] = steps_by_kind.get(kind, 0) + 1
+        if steps % 25 == 0:
+            engine.fit_profiler()   # refresh Eq. 1/2 online
+        check(steps < 20_000, "serve phase did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+
+    for r in reqs:
+        check(r.finish_time is not None and len(r.generated) == r.l_out,
+              f"request {r.rid} produced {len(r.generated)} of {r.l_out}")
+    passes = c1_passes(engine)
+    check(launches["paged_decode_attention"] == cfg.n_layers * passes,
+          f"decode-attention launches {launches['paged_decode_attention']}"
+          f" != {cfg.n_layers} x {passes} C==1 passes")
+    check(launches["page_gather"] == 0, "serve phase exported KV")
+    m = compute_metrics(reqs, cost_units=engine.clock,
+                        makespan=engine.clock)
+    ttft = np.array([r.ttft for r in reqs])
+    tpot = np.array([r.tpot for r in reqs])
+    decode_s = time_by_kind.get("decode", 0.0)
+    out = {
+        "phase": "serve", "model": cfg.name, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model, "dtype": "bfloat16",
+        "params": cfg.param_count(), "engine": ENGINE,
+        "served": m.n_finished, "n_total": m.n_total,
+        "prompt_tokens": int(sum(r.l_in for r in reqs)),
+        "output_tokens": int(sum(r.l_out for r in reqs)),
+        "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p99_s": float(np.percentile(ttft, 99)),
+        "tpot_p50_s": float(np.percentile(tpot, 50)),
+        "tpot_p99_s": float(np.percentile(tpot, 99)),
+        "decode_tok_per_s": engine.n_decode_tokens / max(decode_s, 1e-9),
+        "metrics": m.row(),
+        "steps": steps, "steps_by_kind": steps_by_kind,
+        "time_by_kind_s": time_by_kind, "wall_s": wall,
+        "engine_clock_s": engine.clock,
+        "decode_block_hist": engine.decode_block_hist,
+        "c1_passes": passes, "launches": launches,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "init_s": init_s,
+    }
+    emit(out)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: P/D hand-off
+# ---------------------------------------------------------------------------
+
+
+def pd_phase(torch, dev, model):
+    from repro_torch.core.request import Request
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    prompt = np.random.default_rng(SEED + 1).integers(
+        0, model.cfg.vocab_size, size=PD_L_IN).astype(np.int32)
+
+    def req():
+        return Request.from_prompt(0, prompt, PD_L_OUT)
+
+    base = InferenceEngine(model, EngineConfig(**ENGINE))
+    r0 = req()
+    base.submit(r0)
+    base.run_until_done()
+    want = list(r0.generated)
+    check(len(want) == PD_L_OUT, "colocated baseline fell short")
+    del base
+    torch.cuda.empty_cache()
+
+    ops.reset_launch_counts()
+    a = InferenceEngine(model, EngineConfig(**ENGINE))
+    a.park_on_prefill = True
+    r = req()
+    a.submit(r)
+    a.run_until_done()
+    check(r.slot in a.parked, "request did not park after prefill")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    payload = a.export_kv(r.rid)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    predicted = a.kv_bytes_of(r.rid)
+    check(predicted == payload.nbytes,
+          f"kv_bytes_of {predicted} != payload {payload.nbytes}")
+    a.evict(r.slot)
+    del a
+    torch.cuda.empty_cache()
+    b = InferenceEngine(model, EngineConfig(**ENGINE))
+    check(b.import_kv(payload, r), "import_kv refused the payload")
+    b.run_until_done()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(r.generated == want, "P/D tokens differ from the colocated run")
+    check(launches["page_gather"] > 0, "export did not launch page_gather")
+    check(launches["paged_decode_attention"]
+          == model.cfg.n_layers * c1_passes(b),
+          "decode-attention launches do not match engine B's passes")
+    out = {"phase": "pd", "l_in": PD_L_IN, "l_out": PD_L_OUT,
+           "tokens_identical": True, "payload_bytes": payload.nbytes,
+           "export_s": export_s, "launches": launches}
+    emit(out)
+    del b, payload
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: kernel path vs plain path, f32
+# ---------------------------------------------------------------------------
+
+
+def parity_phase(torch, dev, cfg):
+    from repro_torch.models.build import Model
+    from repro_torch.serving.kv_manager import PagedKVManager
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = dataclasses.replace(cfg, n_layers=2)
+    model = Model(small, dtype=torch.float32, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED + 2))
+    n_slots, max_len, ps, chunk = 4, 2048, 16, 256
+    kv = PagedKVManager(n_slots, max_len, ps, device=dev)
+    caches = model.init_paged_cache(n_slots, max_len, ps, kv.n_pages)
+    rng = np.random.default_rng(SEED + 3)
+    lens = [700, 33, 1290, 5]
+    prompts = [rng.integers(0, small.vocab_size, n).astype(np.int32)
+               for n in lens]
+    pos = np.zeros(n_slots, np.int32)
+    while any(pos[i] < n for i, n in enumerate(lens)):
+        tokens = np.zeros((n_slots, chunk), np.int32)
+        take = np.zeros(n_slots, np.int32)
+        for i, p in enumerate(prompts):
+            t = min(chunk, len(p) - int(pos[i]))
+            tokens[i, :t] = p[pos[i]:pos[i] + t]
+            take[i] = t
+            check(kv.ensure(i, int(pos[i] + t)), "parity pool too small")
+        logits, caches = model.chunk_step(
+            caches, kv.device_table(), torch.as_tensor(tokens, device=dev),
+            torch.as_tensor(pos, device=dev), torch.as_tensor(take,
+                                                              device=dev))
+        pos += take
+    last = logits.argmax(-1).to(torch.int32)
+    plain = [{k: t.clone() for k, t in seg.items()} for seg in caches]
+    ones = torch.ones(n_slots, dtype=torch.int32, device=dev)
+    errs = []
+    for _ in range(4):
+        for i in range(n_slots):
+            check(kv.ensure(i, int(pos[i]) + 1), "parity pool too small")
+        args = (kv.device_table(), last[:, None],
+                torch.as_tensor(pos, device=dev), ones)
+        model.use_kernels = True
+        lk, caches = model.chunk_step(caches, *args)
+        model.use_kernels = False
+        lp, plain = model.chunk_step(plain, *args)
+        torch.cuda.synchronize()
+        errs.append(float((lk - lp).abs().max()))
+        last = lk.argmax(-1).to(torch.int32)
+        pos += 1
+    err = max(errs)
+    check(err <= 2e-4, f"kernel vs plain decode logits differ by {err}")
+    out = {"phase": "parity", "n_layers": 2, "d_model": small.d_model,
+           "dtype": "float32", "prompt_lens": lens,
+           "max_abs_logit_err": err, "tol": 2e-4,
+           "logit_absmax": float(lk.abs().max())}
+    emit(out)
+    del model, caches, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# --profile: where the time of a prefill chunk and of decode blocks goes
+# ---------------------------------------------------------------------------
+
+
+def trace_summary(path: Path, wall_s: float) -> dict:
+    """Device busy time (union of kernel intervals), kernel time by name
+    and launch count from a chrome trace of ``torch.profiler``."""
+    with gzip.open(path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name: dict[str, list] = {}
+    for e in kernels:
+        row = by_name.setdefault(e["name"][:80], [0.0, 0])
+        row[0] += e["dur"] / 1e3
+        row[1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"wall_ms": 1e3 * wall_s, "busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / 1e3 / (1e3 * wall_s),
+            "n_kernels": len(kernels),
+            "n_cpu_ops": sum(e.get("cat") == "cpu_op" for e in events),
+            "top_kernels_ms": {k: {"ms": v[0], "n": v[1]} for k, v in top}}
+
+
+def profile_phase(torch, dev, model, out_dir: Path):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.request import Request
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    out_dir.mkdir(parents=True, exist_ok=True)
+    engine = InferenceEngine(model, EngineConfig(**ENGINE))
+    rng = np.random.default_rng(SEED + 4)
+    for i in range(ENGINE["n_slots"]):
+        prompt = rng.integers(0, model.cfg.vocab_size, 512).astype(np.int32)
+        engine.submit(Request.from_prompt(i, prompt, 64))
+    result = {"phase": "profile",
+              "requests": f"{ENGINE['n_slots']} x (512 in, 64 out)"}
+
+    def window(name: str, n_steps: int) -> None:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            evs = [engine.step() for _ in range(n_steps)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        path = out_dir / f"trace_{name}.json.gz"
+        prof.export_chrome_trace(str(path))
+        result[name] = {**trace_summary(path, wall),
+                        "steps": [(e["kind"], e.get("k"), e.get("tokens"))
+                                  for e in evs]}
+
+    engine.step()                 # first chunk: cuBLAS picks its kernels
+    window("prefill_chunk", 1)
+    while engine.queue or engine.prefilling:
+        engine.step()
+    engine.step()                 # first full-batch decode block
+    window("decode", 2)
+    emit(result)
+
+
+# ---------------------------------------------------------------------------
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {ROOT} holds no src/repro_torch; run it from "
+              f"the repository", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.models.build import Model
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    build_s = _build.build_all()
+    for name, log in _build.build_log.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[ptxas {name}] {line.strip()}", file=sys.stderr)
+    emit({"phase": "device", "name": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "build_s": build_s,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    cfg = get_config("qwen7b")
+    if "--profile" in sys.argv[1:]:
+        model = Model(cfg, dtype=torch.bfloat16, device=dev)
+        model.init(torch.Generator(device=dev).manual_seed(SEED))
+        profile_phase(torch, dev, model, ROOT / "build" / "profile")
+        return 0
+
+    att, gat = kernels_phase(torch, dev)
+
+    t0 = time.perf_counter()
+    model = Model(cfg, dtype=torch.bfloat16, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    serve = serve_phase(torch, dev, model, init_s)
+    pd = pd_phase(torch, dev, model)
+    del model
+    torch.cuda.empty_cache()
+    parity_phase(torch, dev, cfg)
+
+    kernels = []
+    for name, row, source, replaces, launches in (
+        ("paged_decode_attention", att,
+         "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
+         "src/repro/kernels/decode_attention.py:167",
+         serve["launches"]["paged_decode_attention"]),
+        ("page_gather", gat, "src/repro_torch/kernels/csrc/page_gather.cu",
+         "src/repro/kernels/page_gather.py:35",
+         pd["launches"]["page_gather"]),
+    ):
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        })
+    print(smi, flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

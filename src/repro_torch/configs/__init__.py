@@ -1,0 +1,44 @@
+"""Architecture registry of the port.
+
+It holds only what the port runs: ``qwen7b`` at full width
+(:func:`get_config`) and its reduced CPU variant
+(:func:`get_smoke_config`).  Other architectures join as their ROADMAP
+items land.
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs import qwen7b
+from repro_torch.configs.base import (
+    ModelConfig,
+    MoEConfig,
+    SSMConfig,
+    reduce_config,
+)
+
+REGISTRY: dict[str, ModelConfig] = {"qwen7b": qwen7b.CONFIG}
+
+
+def get_config(name: str) -> ModelConfig:
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown architecture {name!r}; the port knows "
+            f"{sorted(REGISTRY)}"
+        ) from None
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return reduce_config(get_config(name))
+
+
+__all__ = [
+    "REGISTRY",
+    "ModelConfig",
+    "MoEConfig",
+    "SSMConfig",
+    "get_config",
+    "get_smoke_config",
+    "reduce_config",
+]

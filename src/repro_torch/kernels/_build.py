@@ -1,0 +1,139 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/*.cu`` file has a plain C interface, so it compiles in
+seconds to its own shared library under ``build/kernels/`` at the root
+of the checkout (git-ignored), named after a hash of its source, and is
+loaded with :mod:`ctypes`.  All sources are compiled at once, one
+``nvcc`` process each, on the first call that needs a kernel; later
+calls and later processes reuse the libraries.  Nothing is built when
+this module is imported.
+
+:func:`launch` is the one place a kernel is launched, so it also keeps
+each kernel's launch count: a plain int that goes up by one when the C
+entry point reports a successful launch, and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+]
+
+_VOID_P = ctypes.c_void_p
+_INT = ctypes.c_int
+# C signature of each library's entry point: (name, argtypes)
+SIGNATURES = {
+    "paged_decode_attention": (
+        "paged_decode_attention_launch",
+        [_VOID_P] * 6 + [_INT] * 8 + [_VOID_P],
+    ),
+    "page_gather": (
+        "page_gather_launch",
+        [_VOID_P] * 3 + [_INT] * 4 + [ctypes.c_longlong, _VOID_P],
+    ),
+}
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+# what the last build printed per kernel (ptxas register/spill report)
+build_log: dict[str, str] = {}
+_launches = {name: 0 for name in SIGNATURES}
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and Path(root, "bin", "nvcc").exists():
+            return str(Path(root, "bin", "nvcc"))
+    raise RuntimeError(
+        "nvcc not found (looked on PATH, $CUDA_HOME and /usr/local/cuda): "
+        "the CUDA kernels cannot be built"
+    )
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{key[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every kernel whose library is missing, all in parallel.
+    Returns the seconds spent; raises with nvcc's output on failure."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in SIGNATURES if not _target(n).exists()]
+    if todo:
+        nvcc = _nvcc()
+        procs = {}
+        for name in todo:
+            tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            ))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            build_log[name] = out
+            if proc.returncode != 0:
+                failed.append(f"--- {name} (nvcc exit {proc.returncode})\n{out}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, _target(name))
+        if failed:
+            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            if not _target(name).exists():
+                build_all()
+            lib = ctypes.CDLL(str(_target(name)))
+            fn_name, argtypes = SIGNATURES[name]
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel ``name``'s C entry point, raise if the launch reported
+    an error (cudaGetLastError right after the launch), else count it."""
+    fn = getattr(library(name), SIGNATURES[name][0])
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(
+            f"CUDA kernel {name} failed to launch: cudaError_t {err}"
+        )
+    _launches[name] += 1

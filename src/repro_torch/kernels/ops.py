@@ -1,0 +1,38 @@
+"""Dispatch between the CUDA kernels and their plain PyTorch versions.
+
+A tensor on the CPU goes to the plain version in
+:mod:`repro_torch.kernels.ref`; a CUDA tensor goes to the kernel, whose
+wrapper launches it or raises — there is no fallback from one to the
+other.  Each kernel's launch count is kept in
+:mod:`repro_torch.kernels._build`, where the kernel is launched, so a
+run can show that its main path went through the kernels
+(``reset_launch_counts`` before, ``launch_counts`` after).
+"""
+
+from __future__ import annotations
+
+from repro_torch.kernels import decode_attention, page_gather as _gather, ref
+from repro_torch.kernels._build import launch_counts, reset_launch_counts
+
+__all__ = ["launch_counts", "reset_launch_counts", "paged_decode_attention",
+           "page_gather"]
+
+
+def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len):
+    """(B, Hq, D) attention of one query token per sequence over a
+    paged pool; see ``ref.paged_decode_attention_ref``."""
+    if q.device.type == "cpu":
+        return ref.paged_decode_attention_ref(
+            q, k_pages, v_pages, page_table, kv_len
+        )
+    return decode_attention.paged_decode_attention(
+        q, k_pages, v_pages, page_table, kv_len
+    )
+
+
+def page_gather(pages, page_ids):
+    """(L, NP, H, ps, D) pool -> (L, H, M*ps, D) for one sequence's
+    pages; see ``ref.page_gather_ref``."""
+    if pages.device.type == "cpu":
+        return ref.page_gather_ref(pages, page_ids)
+    return _gather.page_gather(pages, page_ids)

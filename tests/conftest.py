@@ -5,6 +5,11 @@ import pytest
 # only launch/dryrun.py requests 512 placeholder devices.
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel; skips without a CUDA card")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
