@@ -4,23 +4,36 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
-``build/kernels/``), then runs five phases, each printing one JSON line:
+``build/kernels/``), then runs six phases, each printing one JSON line:
 
 1. ``device``  — the card, its power limit and the kernel build time.
 2. ``kernels`` — each kernel against its plain PyTorch version on the
-   card (f32 within 2e-5 with TF32 off, bf16 within 2e-2, the gather
-   exactly), timed beside its bound, its plain version and a PyTorch
-   library call that computes the same function.
+   card (``rtol = atol =`` 2e-5 in f32 with TF32 off, 2e-2 in bf16, the
+   gather exactly) at the shapes the main paths give it, plus a ragged
+   and a bidirectional flash case and ``kv_len == 0`` decode rows; each
+   timed (device time from ``torch.profiler``'s events; the kernel also
+   with CUDA events over back-to-back calls) beside its bound, its plain
+   version and a PyTorch library call that computes the same function.
 3. ``serve``   — qwen7b at full width in bf16 (weights drawn on the card
    from a seeded generator) serving 16 Table-1 requests through the
    paged engine; every request must finish with its ``l_out`` tokens
-   and the decode-attention kernel must have run 32 times per C == 1
-   forward pass.
+   and the paged decode-attention kernel must have run 32 times per
+   C == 1 forward pass.
 4. ``pd``      — one request prefilled on engine A, exported, evicted and
    imported into engine B: tokens identical to the colocated run, the
    payload size as predicted, the page-gather kernel launched.
-5. ``parity``  — a 2-layer full-width qwen7b in f32: decode logits of
-   the kernel path against the plain path within 2e-4.
+5. ``slot``    — gemma3-4b at full width in bf16 (random weights from a
+   seed) serving 16 requests on the slot plane, which the engine picks
+   by itself for its sliding-window layers: 12 Table-1 requests and 4
+   wikisql prompts longer than the 1024-token window.  Every request
+   must finish; flash attention must have run 34 times per prefill
+   dispatch and the contiguous decode-attention kernel 5 times (the
+   global layers) per C == 1 forward pass.
+6. ``parity``  — f32 with TF32 off, kernel route against plain route on
+   the same weights: a 2-layer full-width qwen7b's paged decode logits,
+   and a 13-layer full-width gemma3 (two local:global groups and a
+   tail) prefilling an 1100-token prompt and decoding 8 tokens; logits
+   within 2e-4.
 
 Then it prints the card's ``nvidia-smi`` name and power limit, one JSON
 line with every kernel's numbers, and, last,
@@ -30,9 +43,10 @@ no CUDA card is visible or when it is run outside the repository.
 
     python3 chip_smoke.py --profile
 
-instead traces one prefill chunk and two decode blocks of the same
-full-width engine with ``torch.profiler``, writes the gzipped chrome
-traces to ``build/profile/`` and prints the device's busy time, idle share and
+instead traces, with ``torch.profiler``, one prefill step and two
+decode blocks of each full-width engine (qwen7b on the paged plane,
+gemma3-4b on the slot plane), writes the gzipped chrome traces to
+``build/profile/`` and prints the device's busy time, idle share and
 kernel time by name for each window.
 """
 
@@ -52,16 +66,31 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor cores, dense
 
 ENGINE = dict(n_slots=8, max_len=2048, prefill_batch=4, page_size=16,
               chunk_size=256, decode_block=8)
 N_REQUESTS = 16
 MAX_L_IN, MAX_L_OUT = 1536, 256
 PD_L_IN, PD_L_OUT = 1000, 24
+SLOT_ENGINE = dict(n_slots=8, max_len=2048, prefill_batch=4, decode_block=8)
+N_TABLE1_SLOT, N_LONG = 12, 4          # slot phase: Table-1 + long wikisql
+LONG_L_IN, LONG_L_OUT = (1100, 1536), 128
+PARITY_L_IN, PARITY_DECODE = 1100, 8
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def bound_row(n_bytes: int, flops: int, flops_per_s: float) -> dict:
+    """The least time the card could take, in ms, and what bounds it:
+    the bytes over the memory rate or the operations over the peak rate
+    of their type, whichever is larger."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, flops / flops_per_s
+    return {"bytes": n_bytes, "flops": flops,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -140,16 +169,10 @@ def kernels_phase(torch, dev):
         args = attention_inputs(torch, dev, **kw)
         got = decode_attention.paged_decode_attention(*args)
         want = ref.paged_decode_attention_ref(*args)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
-        check(err <= tol, f"paged_decode_attention {name}: max abs err "
-                          f"{err} > {tol}")
+        cases[name] = compare(torch, got, want, tol,
+                              f"paged_decode_attention {name}")
         if kw.get("zero_row"):
             check(bool((got[0] == 0).all()), f"{name}: kv_len 0 row != 0")
-        cases[name] = {"max_abs_err": err, "tol": tol,
-                       "want_absmax": float(want.float().abs().max()),
-                       "want_std": float(want.float().std())}
 
     # timing at the main path's decode shape and dtype
     q, k, v, table, kv_len = attention_inputs(
@@ -166,17 +189,14 @@ def kernels_phase(torch, dev):
     mask = (torch.arange(kc.shape[2], device=dev)[None, :]
             < kv_len[:, None].long())[:, None, None, :]
     att = {
-        "ms": cuda_ms(torch, lambda: decode_attention.paged_decode_attention(
-            q, k, v, table, kv_len), 50),
-        "plain_ms": cuda_ms(torch, lambda: ref.paged_decode_attention_ref(
-            q, k, v, table, kv_len), 10),
-        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            q[:, :, None, :], kc, vc, attn_mask=mask), 50),
-        "bytes": att_bytes, "flops": att_flops,
-        "bound_ms": 1e3 * max(att_bytes / HBM_BYTES_PER_S,
-                              att_flops / F32_FLOPS_PER_S),
-        "bound_by": ("bytes" if att_bytes / HBM_BYTES_PER_S
-                     >= att_flops / F32_FLOPS_PER_S else "operations"),
+        **timings(
+            torch,
+            lambda: decode_attention.paged_decode_attention(
+                q, k, v, table, kv_len),
+            lambda: ref.paged_decode_attention_ref(q, k, v, table, kv_len),
+            lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], kc, vc, attn_mask=mask), 50),
+        **bound_row(att_bytes, att_flops, F32_FLOPS_PER_S),
         "max_abs_err": cases["mha_bf16"]["max_abs_err"],
         "shape": {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "ps": ps,
                   "MP": table.shape[1], "sum_kv_len": int(lens.sum()),
@@ -208,21 +228,182 @@ def kernels_phase(torch, dev):
             0, 2, 1, 3, 4).contiguous()
 
     gat = {
-        "ms": cuda_ms(torch, lambda: page_gather.page_gather(pages, ids), 50),
-        "plain_ms": cuda_ms(torch, lambda: ref.page_gather_ref(pages, ids),
-                            20),
-        "library_ms": cuda_ms(torch, library_gather, 50),
-        "bytes": gat_bytes, "flops": 0,
-        "bound_ms": 1e3 * gat_bytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+        **timings(torch, lambda: page_gather.page_gather(pages, ids),
+                  lambda: ref.page_gather_ref(pages, ids), library_gather,
+                  50),
+        **bound_row(gat_bytes, 0, 1.0),
         "max_abs_err": 0.0,
         "shape": {"L": n_l, "NP": n_pages, "H": h, "ps": ps, "D": d, "M": m,
                   "dtype": "bfloat16"},
     }
     del pages
     torch.cuda.empty_cache()
+    flash = flash_kernel_rows(torch, dev)
+    dec = decode_kernel_rows(torch, dev)
     emit({"phase": "kernels", "paged_decode_attention": {**att,
-          "cases": cases}, "page_gather": gat})
-    return att, gat
+          "cases": cases}, "page_gather": gat, "flash_attention": flash,
+          "decode_attention": dec})
+    return {"paged_decode_attention": att, "page_gather": gat,
+            "flash_attention": flash, "decode_attention": dec}
+
+
+def compare(torch, got, want, tol, name):
+    """``got`` against ``want`` with ``rtol = atol = tol``, the criterion
+    of tests/test_kernels.py (fails on a non-finite value too); returns
+    the max abs error with the scale of what was compared."""
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    worst = float((diff / (tol + tol * want.float().abs())).max())
+    check(worst <= 1.0, f"{name}: max abs err {err} exceeds rtol = atol "
+                        f"= {tol} (by x{worst:.3g})")
+    return {"max_abs_err": err, "tol": tol,
+            "want_absmax": float(want.float().abs().max()),
+            "want_std": float(want.float().std())}
+
+
+def timings(torch, kernel, plain, library, iters: int) -> dict:
+    """Device times of a kernel, its plain version and the library call
+    that computes the same function, and the kernel's CUDA-event time
+    over back-to-back calls (``event_ms``), which also holds the host's
+    launch gaps."""
+    return {"ms": device_ms(torch, kernel),
+            "plain_ms": device_ms(torch, plain),
+            "library_ms": device_ms(torch, library),
+            "event_ms": cuda_ms(torch, kernel, iters)}
+
+
+def device_ms(torch, fn, iters: int = 5) -> float:
+    """Device time of one call of ``fn``: the durations of what it runs
+    on the card, from ``torch.profiler``'s events over ``iters`` calls,
+    summed and divided by ``iters``.  Unlike ``cuda_ms`` it leaves out
+    the host's gaps between launches, which dominate calls of a few
+    tens of microseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    check(us > 0, "the profiler recorded no device time")
+    return us / 1e3 / iters
+
+
+def flash_pairs(s: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one (b, head) of flash attention."""
+    q = np.arange(s)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(s, int)
+    hi = q + 1 if causal else np.full(s, s)
+    return int((hi - lo).sum())
+
+
+def flash_kernel_rows(torch, dev):
+    """Flash attention against its plain version at gemma3's prefill
+    shape (global and local layers) and qwen7b's, a ragged S and a
+    bidirectional case; timed at gemma3's local-layer shape, which 29 of
+    its 34 layers run."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {}
+    for name, (b, hq, hkv, s, d), causal, window, dt, tol in (
+        ("gemma3_global_bf16", (4, 8, 4, 2048, 256), True, 0, bf16, 2e-2),
+        ("gemma3_local_bf16", (4, 8, 4, 2048, 256), True, 1024, bf16, 2e-2),
+        ("gemma3_local_f32", (4, 8, 4, 2048, 256), True, 1024, f32, 2e-5),
+        ("qwen7b_bf16", (4, 32, 32, 2048, 128), True, 0, bf16, 2e-2),
+        ("ragged40_f32", (2, 8, 4, 40, 256), True, 0, f32, 2e-5),
+        ("bidirectional_f32", (2, 8, 4, 300, 256), False, 0, f32, 2e-5),
+    ):
+        g = torch.Generator(device=dev).manual_seed(s + d + window)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+                   for shape in ((b, hq, s, d), (b, hkv, s, d),
+                                 (b, hkv, s, d)))
+        got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                              window=window)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        cases[name] = compare(torch, got, want, tol, f"flash {name}")
+        del got, want
+        if name not in ("gemma3_global_bf16", "gemma3_local_bf16"):
+            continue
+        pos = torch.arange(s, device=dev)
+        band = pos[None, :] <= pos[:, None]
+        if window:
+            band &= (pos[:, None] - pos[None, :]) < window
+        n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        flops = 4 * b * hq * d * flash_pairs(s, causal, window)
+        cases[name].update(
+            **timings(
+                torch,
+                lambda: flash_attention.flash_attention(
+                    q, k, v, causal=causal, window=window),
+                lambda: ref.flash_attention_ref(q, k, v, causal=causal,
+                                                window=window),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=band, enable_gqa=True), 10),
+            **bound_row(n_bytes, flops, BF16_FLOPS_PER_S),
+            shape={"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
+                   "causal": causal, "window": window, "dtype": "bfloat16"})
+        del q, k, v, band
+    torch.cuda.empty_cache()
+    return {**cases["gemma3_local_bf16"], "cases": cases}
+
+
+def decode_kernel_rows(torch, dev):
+    """Contiguous decode attention against its plain version at gemma3's
+    decode shape (8 slots of up to 2048 tokens, GQA 8/4, D 256, one
+    ``kv_len == 0`` row) and qwen7b's MHA shape; timed at gemma3's."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention, ref
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {}
+    for name, (b, hq, hkv, s, d), dt, tol in (
+        ("gemma3_bf16_kvlen0", (8, 8, 4, 2048, 256), bf16, 2e-2),
+        ("gemma3_f32_kvlen0", (8, 8, 4, 2048, 256), f32, 2e-5),
+        ("qwen7b_mha_bf16", (8, 32, 32, 2048, 128), bf16, 2e-2),
+    ):
+        g = torch.Generator(device=dev).manual_seed(s + d + hq)
+        q = torch.randn(b, hq, d, generator=g, device=dev).to(dt)
+        k, v = (torch.randn(b, hkv, s, d, generator=g, device=dev).to(dt)
+                for _ in range(2))
+        lens = np.random.default_rng(hq + d).integers(1, s + 1, size=b)
+        if "kvlen0" in name:
+            lens[0] = 0
+        kv_len = torch.as_tensor(lens.astype(np.int32), device=dev)
+        got = decode_attention.decode_attention(q, k, v, kv_len)
+        want = ref.decode_attention_ref(q, k, v, kv_len)
+        cases[name] = compare(torch, got, want, tol, f"decode {name}")
+        if "kvlen0" in name:
+            check(bool((got[0] == 0).all()), f"{name}: kv_len 0 row != 0")
+        if name != "gemma3_bf16_kvlen0":
+            continue
+        mask = (torch.arange(s, device=dev)[None, :]
+                < kv_len[:, None].long())[:, None, None, :]
+        n_bytes = (int(lens.sum()) * hkv * d * 2 * q.element_size()
+                   + 2 * q.numel() * q.element_size() + 4 * b)
+        flops = 4 * int(lens.sum()) * hq * d
+        cases[name].update(
+            **timings(
+                torch,
+                lambda: decode_attention.decode_attention(q, k, v, kv_len),
+                lambda: ref.decode_attention_ref(q, k, v, kv_len),
+                lambda: F.scaled_dot_product_attention(
+                    q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=True),
+                50),
+            **bound_row(n_bytes, flops, BF16_FLOPS_PER_S),
+            shape={"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
+                   "sum_kv_len": int(lens.sum()), "dtype": "bfloat16"})
+    torch.cuda.empty_cache()
+    return {**cases["gemma3_bf16_kvlen0"], "cases": cases}
 
 
 # ---------------------------------------------------------------------------
@@ -253,13 +434,32 @@ def c1_passes(engine) -> int:
 
 
 def serve_phase(torch, dev, model, init_s: float):
-    from repro_torch.kernels import ops
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
-    from repro_torch.serving.metrics import compute_metrics
 
     cfg = model.cfg
     engine = InferenceEngine(model, EngineConfig(**ENGINE))
     reqs = table1_requests(cfg.vocab_size)
+    out = drive(torch, engine, reqs, "serve")
+    launches, passes = out["launches"], out["c1_passes"]
+    check(launches["paged_decode_attention"] == cfg.n_layers * passes,
+          f"decode-attention launches {launches['paged_decode_attention']}"
+          f" != {cfg.n_layers} x {passes} C==1 passes")
+    check(launches["page_gather"] == 0, "serve phase exported KV")
+    out.update(engine=ENGINE, init_s=init_s)
+    emit(out)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive(torch, engine, reqs, phase: str) -> dict:
+    """Serve ``reqs`` (all arriving at t=0) to completion with the
+    launch counts set to 0 just before; check that every request got
+    its ``l_out`` tokens; return the phase's summary."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.metrics import compute_metrics
+
+    cfg = engine.model.cfg
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -277,7 +477,7 @@ def serve_phase(torch, dev, model, init_s: float):
         steps_by_kind[kind] = steps_by_kind.get(kind, 0) + 1
         if steps % 25 == 0:
             engine.fit_profiler()   # refresh Eq. 1/2 online
-        check(steps < 20_000, "serve phase did not drain")
+        check(steps < 20_000, f"{phase} phase did not drain")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -285,20 +485,16 @@ def serve_phase(torch, dev, model, init_s: float):
     for r in reqs:
         check(r.finish_time is not None and len(r.generated) == r.l_out,
               f"request {r.rid} produced {len(r.generated)} of {r.l_out}")
-    passes = c1_passes(engine)
-    check(launches["paged_decode_attention"] == cfg.n_layers * passes,
-          f"decode-attention launches {launches['paged_decode_attention']}"
-          f" != {cfg.n_layers} x {passes} C==1 passes")
-    check(launches["page_gather"] == 0, "serve phase exported KV")
     m = compute_metrics(reqs, cost_units=engine.clock,
                         makespan=engine.clock)
     ttft = np.array([r.ttft for r in reqs])
     tpot = np.array([r.tpot for r in reqs])
     decode_s = time_by_kind.get("decode", 0.0)
-    out = {
-        "phase": "serve", "model": cfg.name, "n_layers": cfg.n_layers,
-        "d_model": cfg.d_model, "dtype": "bfloat16",
-        "params": cfg.param_count(), "engine": ENGINE,
+    return {
+        "phase": phase, "model": cfg.name, "n_layers": cfg.n_layers,
+        "d_model": cfg.d_model,
+        "dtype": str(engine.model.dtype).removeprefix("torch."),
+        "params": cfg.param_count(), "paged": engine.paged,
         "served": m.n_finished, "n_total": m.n_total,
         "prompt_tokens": int(sum(r.l_in for r in reqs)),
         "output_tokens": int(sum(r.l_out for r in reqs)),
@@ -312,14 +508,9 @@ def serve_phase(torch, dev, model, init_s: float):
         "time_by_kind_s": time_by_kind, "wall_s": wall,
         "engine_clock_s": engine.clock,
         "decode_block_hist": engine.decode_block_hist,
-        "c1_passes": passes, "launches": launches,
+        "c1_passes": c1_passes(engine), "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "init_s": init_s,
     }
-    emit(out)
-    del engine
-    torch.cuda.empty_cache()
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -385,7 +576,72 @@ def pd_phase(torch, dev, model):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: kernel path vs plain path, f32
+# phase 5: slot plane, gemma3-4b
+# ---------------------------------------------------------------------------
+
+
+def slot_requests(vocab: int):
+    """12 Table-1 requests (the serve phase's draw) and, after every
+    third, one wikisql request whose prompt exceeds the 1024-token
+    window — Table-1 prompts average well under it."""
+    from repro_torch.core.request import TASKS, Request
+
+    base = table1_requests(vocab)[:N_TABLE1_SLOT]
+    spec = TASKS["wikisql"]
+    rng = np.random.default_rng(SEED + 5)
+    long = []
+    for _ in range(N_LONG):
+        l_in = int(rng.integers(LONG_L_IN[0], LONG_L_IN[1] + 1))
+        l_out = min(spec.sample_lengths(rng)[1], LONG_L_OUT)
+        long.append((rng.integers(0, vocab, size=l_in).astype(np.int32),
+                     l_out))
+    order = []
+    for j in range(N_LONG):
+        order += base[3 * j: 3 * j + 3] + [long[j]]
+    reqs = []
+    for i, r in enumerate(order):
+        if isinstance(r, tuple):
+            reqs.append(Request.from_prompt(
+                i, r[0], r[1], task=spec.name, ttft_slo=spec.ttft_slo,
+                tpot_slo=spec.tpot_slo))
+        else:
+            r.rid = i
+            reqs.append(r)
+    return reqs
+
+
+def slot_phase(torch, dev, model, init_s: float):
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    cfg = model.cfg
+    engine = InferenceEngine(model, EngineConfig(**SLOT_ENGINE))
+    check(not engine.paged, "the engine did not pick the slot plane")
+    reqs = slot_requests(cfg.vocab_size)
+    n_over = sum(r.l_in > cfg.window for r in reqs)
+    check(n_over >= N_LONG, f"only {n_over} prompts exceed the window")
+    out = drive(torch, engine, reqs, "slot")
+    launches, passes = out["launches"], out["c1_passes"]
+    n_prefill = out["steps_by_kind"].get("prefill", 0)
+    n_global = sum(w == 0 for w in model.windows)
+    check(launches["flash_attention"] == cfg.n_layers * n_prefill,
+          f"flash launches {launches['flash_attention']} != "
+          f"{cfg.n_layers} x {n_prefill} prefill dispatches")
+    check(launches["decode_attention"] == n_global * passes,
+          f"decode-attention launches {launches['decode_attention']} != "
+          f"{n_global} x {passes} C==1 passes")
+    check(launches["paged_decode_attention"] == launches["page_gather"] == 0,
+          "the slot phase ran a paged-plane kernel")
+    out.update(engine=SLOT_ENGINE, init_s=init_s, window=cfg.window,
+               prompts_over_window=n_over, global_layers=n_global,
+               prefill_dispatches=n_prefill)
+    emit(out)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: kernel path vs plain path, f32
 # ---------------------------------------------------------------------------
 
 
@@ -438,12 +694,67 @@ def parity_phase(torch, dev, cfg):
         pos += 1
     err = max(errs)
     check(err <= 2e-4, f"kernel vs plain decode logits differ by {err}")
-    out = {"phase": "parity", "n_layers": 2, "d_model": small.d_model,
-           "dtype": "float32", "prompt_lens": lens,
+    out = {"phase": "parity", "model": small.name, "n_layers": 2,
+           "d_model": small.d_model, "dtype": "float32", "prompt_lens": lens,
            "max_abs_logit_err": err, "tol": 2e-4,
            "logit_absmax": float(lk.abs().max())}
     emit(out)
     del model, caches, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def slot_parity_phase(torch, dev, cfg, n_layers: int = 13):
+    """gemma3 at full width in f32, cut to 2 local:global groups and a
+    1-layer local tail (the JAX package's group layout): prefill of one
+    prompt longer than the window, then decode steps, once through the
+    kernels and once through the plain routes, on the same weights."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.build import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = dataclasses.replace(cfg, n_layers=n_layers)
+    model = Model(small, dtype=torch.float32, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED + 6))
+    n_global = sum(w == 0 for w in model.windows)
+    prompt = np.random.default_rng(SEED + 7).integers(
+        0, small.vocab_size, size=PARITY_L_IN).astype(np.int32)
+    tokens = torch.as_tensor(prompt[None], device=dev)
+    lens = torch.tensor([PARITY_L_IN], dtype=torch.int32, device=dev)
+    runs = {}
+    ops.reset_launch_counts()
+    for use_kernels in (True, False):
+        model.use_kernels = use_kernels
+        runs[use_kernels] = model.prefill(tokens, lens,
+                                          cache_len=SLOT_ENGINE["max_len"])
+    torch.cuda.synchronize()
+    errs = [float((runs[True][0] - runs[False][0]).abs().max())]
+    last = runs[True][0].argmax(-1).to(torch.int32)
+    for i in range(PARITY_DECODE):
+        pos = torch.tensor([PARITY_L_IN + i], dtype=torch.int32, device=dev)
+        for use_kernels in (True, False):
+            model.use_kernels = use_kernels
+            runs[use_kernels] = model.decode_step(runs[use_kernels][1], last,
+                                                  pos)
+        torch.cuda.synchronize()
+        errs.append(float((runs[True][0] - runs[False][0]).abs().max()))
+        last = runs[True][0].argmax(-1).to(torch.int32)
+    launches = ops.launch_counts()
+    check(launches["flash_attention"] == n_layers,
+          f"parity prefill launched flash {launches['flash_attention']}x")
+    check(launches["decode_attention"] == n_global * PARITY_DECODE,
+          f"parity decode launched {launches['decode_attention']}x")
+    err = max(errs)
+    check(err <= 2e-4, f"gemma3 kernel vs plain logits differ by {err}")
+    out = {"phase": "parity", "model": small.name, "n_layers": n_layers,
+           "d_model": small.d_model, "dtype": "float32",
+           "prompt_len": PARITY_L_IN, "window": small.window,
+           "decode_steps": PARITY_DECODE, "prefill_abs_logit_err": errs[0],
+           "max_abs_logit_err": err, "tol": 2e-4,
+           "logit_absmax": float(runs[True][0].abs().max())}
+    emit(out)
+    del model, runs
     torch.cuda.empty_cache()
     return out
 
@@ -478,20 +789,22 @@ def trace_summary(path: Path, wall_s: float) -> dict:
             "top_kernels_ms": {k: {"ms": v[0], "n": v[1]} for k, v in top}}
 
 
-def profile_phase(torch, dev, model, out_dir: Path):
+def profile_phase(torch, dev, model, engine_kw: dict, l_in: int,
+                  out_dir: Path):
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.request import Request
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
 
     out_dir.mkdir(parents=True, exist_ok=True)
-    engine = InferenceEngine(model, EngineConfig(**ENGINE))
+    engine = InferenceEngine(model, EngineConfig(**engine_kw))
     rng = np.random.default_rng(SEED + 4)
-    for i in range(ENGINE["n_slots"]):
-        prompt = rng.integers(0, model.cfg.vocab_size, 512).astype(np.int32)
+    for i in range(engine_kw["n_slots"]):
+        prompt = rng.integers(0, model.cfg.vocab_size, l_in).astype(np.int32)
         engine.submit(Request.from_prompt(i, prompt, 64))
-    result = {"phase": "profile",
-              "requests": f"{ENGINE['n_slots']} x (512 in, 64 out)"}
+    result = {"phase": "profile", "model": model.cfg.name,
+              "paged": engine.paged,
+              "requests": f"{engine_kw['n_slots']} x ({l_in} in, 64 out)"}
 
     def window(name: str, n_steps: int) -> None:
         torch.cuda.synchronize()
@@ -501,19 +814,21 @@ def profile_phase(torch, dev, model, out_dir: Path):
             evs = [engine.step() for _ in range(n_steps)]
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        path = out_dir / f"trace_{name}.json.gz"
+        path = out_dir / f"trace_{model.cfg.name}_{name}.json.gz"
         prof.export_chrome_trace(str(path))
         result[name] = {**trace_summary(path, wall),
                         "steps": [(e["kind"], e.get("k"), e.get("tokens"))
                                   for e in evs]}
 
-    engine.step()                 # first chunk: cuBLAS picks its kernels
-    window("prefill_chunk", 1)
+    engine.step()                 # first prefill: cuBLAS picks its kernels
+    window("prefill", 1)
     while engine.queue or engine.prefilling:
         engine.step()
     engine.step()                 # first full-batch decode block
     window("decode", 2)
     emit(result)
+    del engine
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -549,38 +864,52 @@ def main() -> int:
           "nvidia_smi": smi, "build_s": build_s,
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
-    cfg = get_config("qwen7b")
-    if "--profile" in sys.argv[1:]:
-        model = Model(cfg, dtype=torch.bfloat16, device=dev)
+    def load(name: str, dtype=torch.bfloat16):
+        t0 = time.perf_counter()
+        model = Model(get_config(name), dtype=dtype, device=dev)
         model.init(torch.Generator(device=dev).manual_seed(SEED))
-        profile_phase(torch, dev, model, ROOT / "build" / "profile")
+        torch.cuda.synchronize()
+        return model, time.perf_counter() - t0
+
+    if "--profile" in sys.argv[1:]:
+        for name, engine_kw, l_in in (("qwen7b", ENGINE, 512),
+                                      ("gemma3-4b", SLOT_ENGINE, 1100)):
+            model, _ = load(name)
+            profile_phase(torch, dev, model, engine_kw, l_in,
+                          ROOT / "build" / "profile")
+            del model
+            torch.cuda.empty_cache()
         return 0
 
-    att, gat = kernels_phase(torch, dev)
+    rows = kernels_phase(torch, dev)
 
-    t0 = time.perf_counter()
-    model = Model(cfg, dtype=torch.bfloat16, device=dev)
-    model.init(torch.Generator(device=dev).manual_seed(SEED))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    model, init_s = load("qwen7b")
     serve = serve_phase(torch, dev, model, init_s)
     pd = pd_phase(torch, dev, model)
+    del model                  # free qwen7b before gemma3 loads
+    torch.cuda.empty_cache()
+    model, init_s = load("gemma3-4b")
+    slot = slot_phase(torch, dev, model, init_s)
     del model
     torch.cuda.empty_cache()
-    parity_phase(torch, dev, cfg)
+    parity_phase(torch, dev, get_config("qwen7b"))
+    slot_parity_phase(torch, dev, get_config("gemma3-4b"))
 
+    csrc = "src/repro_torch/kernels/csrc"
     kernels = []
-    for name, row, source, replaces, launches in (
-        ("paged_decode_attention", att,
-         "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-         "src/repro/kernels/decode_attention.py:167",
+    for name, replaces, launches in (
+        ("paged_decode_attention", "src/repro/kernels/decode_attention.py:167",
          serve["launches"]["paged_decode_attention"]),
-        ("page_gather", gat, "src/repro_torch/kernels/csrc/page_gather.cu",
-         "src/repro/kernels/page_gather.py:35",
+        ("page_gather", "src/repro/kernels/page_gather.py:35",
          pd["launches"]["page_gather"]),
+        ("flash_attention", "src/repro/kernels/flash_attention.py:95",
+         slot["launches"]["flash_attention"]),
+        ("decode_attention", "src/repro/kernels/decode_attention.py:69",
+         slot["launches"]["decode_attention"]),
     ):
+        row = rows[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": source,
+            "name": name, "route": "cuda", "source": f"{csrc}/{name}.cu",
             "replaces": replaces, "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -1,14 +1,14 @@
 """Architecture registry of the port.
 
-It holds only what the port runs: ``qwen7b`` at full width
-(:func:`get_config`) and its reduced CPU variant
-(:func:`get_smoke_config`).  Other architectures join as their ROADMAP
-items land.
+It holds only what the port runs, at full width (:func:`get_config`)
+and as reduced CPU variants (:func:`get_smoke_config`): ``qwen7b`` (the
+paged plane) and ``gemma3-4b`` (local windows, so the slot plane).
+Other architectures join as their ROADMAP items land.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import qwen7b
+from repro_torch.configs import gemma3_4b, qwen7b
 from repro_torch.configs.base import (
     ModelConfig,
     MoEConfig,
@@ -16,7 +16,10 @@ from repro_torch.configs.base import (
     reduce_config,
 )
 
-REGISTRY: dict[str, ModelConfig] = {"qwen7b": qwen7b.CONFIG}
+REGISTRY: dict[str, ModelConfig] = {
+    "qwen7b": qwen7b.CONFIG,
+    "gemma3-4b": gemma3_4b.CONFIG,
+}
 
 
 def get_config(name: str) -> ModelConfig:

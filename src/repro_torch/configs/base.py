@@ -12,8 +12,8 @@ hyper-parameters plus the *layer pattern* the model builder reads:
 - ``encoder``      — bidirectional (non-causal) attention block
 
 A model is a sequence of *segments* ``(kind, count)``.  The port's
-builder runs the ``dense`` kind; the others raise until their ROADMAP
-items land, but the config keeps every field so those slices need no
+builder runs the ``dense``, ``local`` and ``global`` kinds; the others
+raise until their ROADMAP items land, but the config keeps every field so those slices need no
 schema change.
 """
 

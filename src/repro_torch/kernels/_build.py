@@ -2,8 +2,8 @@
 
 Each ``csrc/*.cu`` file has a plain C interface, so it compiles in
 seconds to its own shared library under ``build/kernels/`` at the root
-of the checkout (git-ignored), named after a hash of its source, and is
-loaded with :mod:`ctypes`.  All sources are compiled at once, one
+of the checkout (git-ignored), named after a hash of its source and of
+the shared ``csrc/*.cuh`` headers, and is loaded with :mod:`ctypes`.  All sources are compiled at once, one
 ``nvcc`` process each, on the first call that needs a kernel; later
 calls and later processes reuse the libraries.  Nothing is built when
 this module is imported.
@@ -24,6 +24,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = [
@@ -38,13 +40,23 @@ _INT = ctypes.c_int
 SIGNATURES = {
     "paged_decode_attention": (
         "paged_decode_attention_launch",
-        [_VOID_P] * 6 + [_INT] * 8 + [_VOID_P],
+        [_VOID_P] * 7 + [_INT] * 9 + [_VOID_P],
     ),
     "page_gather": (
         "page_gather_launch",
         [_VOID_P] * 3 + [_INT] * 4 + [ctypes.c_longlong, _VOID_P],
     ),
+    "flash_attention": (
+        "flash_attention_launch",
+        [_VOID_P] * 4 + [_INT] * 8 + [_VOID_P],
+    ),
+    "decode_attention": (
+        "decode_attention_launch",
+        [_VOID_P] * 6 + [_INT] * 7 + [_VOID_P],
+    ),
 }
+# dtype code the attention entry points take
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -76,7 +88,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the key covers the shared headers too, which every source may include
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{key[:16]}.so"
 
@@ -125,6 +139,32 @@ def library(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
+
+
+def check_operands(floats: dict, ints: dict) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor on one
+    device, the float operands share one dtype of ``DTYPE_CODE`` and are
+    16-byte aligned (the kernels read 16-byte words), and the integer
+    operands are int32 (torch's default integer is int64)."""
+    tensors = {**floats, **ints}
+    first = next(iter(tensors.values()))
+    for name, t in tensors.items():
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if t.device != first.device:
+            raise ValueError(f"{name} is on {t.device}, not {first.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    dtypes = {t.dtype for t in floats.values()}
+    if len(dtypes) != 1 or not dtypes <= DTYPE_CODE.keys():
+        raise TypeError(f"{', '.join(floats)} must share one dtype of "
+                        f"float32 / bfloat16, got {sorted(map(str, dtypes))}")
+    for name, t in ints.items():
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    for name, t in floats.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def launch(name: str, *args) -> None:

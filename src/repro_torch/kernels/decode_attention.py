@@ -1,14 +1,20 @@
-"""Paged decode attention on the card: wrapper of
-``csrc/paged_decode_attention.cu``.
+"""Decode attention on the card: wrappers of ``csrc/decode_attention.cu``
+(a contiguous cache) and ``csrc/paged_decode_attention.cu`` (a paged
+pool), mirroring ``repro/kernels/decode_attention.py``, which holds both
+Pallas kernels.
 
-Replaces the Pallas TPU kernel
-``repro/kernels/decode_attention.py::paged_decode_attention``.  The
-kernel is bound by memory bandwidth: it must read
-``sum_b kv_len_b * Hkv * D * 2 * itemsize`` bytes of K/V, so its least
-time on an H100 is those bytes over 3.35 TB/s.  The source file says how
-its design answers that.  Its plain PyTorch version is
-``repro_torch.kernels.ref.paged_decode_attention_ref``;
-``repro_torch.kernels.ops`` picks between the two by device.
+Both kernels replace Pallas TPU kernels of that file
+(``decode_attention`` and ``paged_decode_attention``) and share their
+split-KV code (``csrc/attn_common.cuh``): each cuts every row's cache
+into chunks of ``SPLIT_TOKENS`` positions, one block per (chunk, head,
+row), and a second launch merges the chunks.  Both are bound
+by memory bandwidth: they must read ``sum_b kv_len_b * Hkv * D * 2 *
+itemsize`` bytes of K/V, so their least time on an H100 is those bytes
+over 3.35 TB/s.  The source files say how their designs answer that.
+Their plain PyTorch versions are ``decode_attention_ref`` and
+``paged_decode_attention_ref`` in :mod:`repro_torch.kernels.ref`;
+:mod:`repro_torch.kernels.ops` picks between kernel and plain version
+by device.
 """
 
 from __future__ import annotations
@@ -17,8 +23,60 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (8, 16, 64, 128)  # the PDA_CASEs of the .cu source
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 64, 128, 256)      # the DA_CASEs of decode_attention.cu
+PAGED_HEAD_DIMS = (8, 16, 64, 128)  # the PDA_CASEs of paged_decode_attention.cu
+SPLIT_TOKENS = 256  # cache positions per block of the split-KV grid
+
+
+def _check_gqa(b, hq, hkv, d, head_dims, kv_len):
+    if d not in head_dims:
+        raise ValueError(f"head_dim {d} not in {head_dims}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    if kv_len.shape != (b,):
+        raise ValueError(f"kv_len must be (B={b},)")
+
+
+def _split_workspace(q, positions: int):
+    """The split-KV grid's chunk count for ``positions`` cache positions
+    per row, and its f32 workspace: one (acc, m, l) row per (b, head,
+    chunk), written by the kernel before it is read."""
+    b, hq, d = q.shape
+    n_split = max(1, -(-positions // SPLIT_TOKENS))
+    return n_split, torch.empty((b, hq, n_split, d + 2), dtype=torch.float32,
+                                device=q.device)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len) -> torch.Tensor:
+    """q: (B, Hq, D); k/v_cache: (B, Hkv, S, D) with Hq % Hkv == 0;
+    kv_len: (B,) int32 (positions ``[0, kv_len)`` are attended, a row of
+    0 gives zeros).  Returns (B, Hq, D) in q's dtype.  Launches the CUDA
+    kernel on the current stream; raises on anything the kernel does not
+    take and on a failed launch."""
+    _build.check_operands({"q": q, "k_cache": k_cache, "v_cache": v_cache},
+                          {"kv_len": kv_len})
+    if q.dim() != 3 or k_cache.dim() != 4:
+        raise ValueError("q must be (B, Hq, D) and caches (B, Hkv, S, D)")
+    b, hq, d = q.shape
+    b_k, hkv, s, d_k = k_cache.shape
+    if v_cache.shape != k_cache.shape or (b_k, d_k) != (b, d):
+        raise ValueError(
+            f"caches {tuple(k_cache.shape)} / {tuple(v_cache.shape)} do not "
+            f"match q {tuple(q.shape)}"
+        )
+    _check_gqa(b, hq, hkv, d, HEAD_DIMS, kv_len)
+    out = torch.empty_like(q)
+    if b == 0 or hq == 0:
+        return out
+    n_split, ws = _split_workspace(q, s)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _build.launch(
+        "decode_attention",
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        kv_len.data_ptr(), ws.data_ptr(), out.data_ptr(),
+        _build.DTYPE_CODE[q.dtype], b, hq, hkv, d, s, n_split, stream,
+    )
+    return out
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table,
@@ -28,21 +86,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table,
     int32.  Returns (B, Hq, D) in q's dtype.  Launches the CUDA kernel
     on the current stream; raises on anything the kernel does not take
     and on a failed launch."""
-    tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
-               "page_table": page_table, "kv_len": kv_len}
-    for name, t in tensors.items():
-        if t.device.type != "cuda":
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in _DTYPE_CODE:
-        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError("q, k_pages and v_pages must share one dtype")
-    if page_table.dtype != torch.int32 or kv_len.dtype != torch.int32:
-        raise TypeError("page_table and kv_len must be int32")
+    _build.check_operands({"q": q, "k_pages": k_pages, "v_pages": v_pages},
+                          {"page_table": page_table, "kv_len": kv_len})
     if q.dim() != 3 or k_pages.dim() != 4:
         raise ValueError("q must be (B, Hq, D) and pages (NP, Hkv, ps, D)")
     b, hq, d = q.shape
@@ -52,26 +97,20 @@ def paged_decode_attention(q, k_pages, v_pages, page_table,
             f"pages {tuple(k_pages.shape)} / {tuple(v_pages.shape)} do not "
             f"match q {tuple(q.shape)}"
         )
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if hkv == 0 or hq % hkv:
-        raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
+    _check_gqa(b, hq, hkv, d, PAGED_HEAD_DIMS, kv_len)
     if page_table.dim() != 2 or page_table.shape[0] != b:
         raise ValueError(f"page_table must be (B={b}, MP)")
-    if kv_len.shape != (b,):
-        raise ValueError(f"kv_len must be (B={b},)")
-    for name in ("q", "k_pages", "v_pages"):
-        if tensors[name].data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(q)
     if b == 0 or hq == 0:
         return out
+    max_pages = page_table.shape[1]
+    n_split, ws = _split_workspace(q, max_pages * ps)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _build.launch(
         "paged_decode_attention",
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
-        _DTYPE_CODE[q.dtype], b, hq, hkv, d, n_pages, ps,
-        page_table.shape[1], stream,
+        page_table.data_ptr(), kv_len.data_ptr(), ws.data_ptr(),
+        out.data_ptr(), _build.DTYPE_CODE[q.dtype], b, hq, hkv, d, n_pages,
+        ps, max_pages, n_split, stream,
     )
     return out

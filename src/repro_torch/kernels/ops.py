@@ -11,11 +11,30 @@ run can show that its main path went through the kernels
 
 from __future__ import annotations
 
-from repro_torch.kernels import decode_attention, page_gather as _gather, ref
+from repro_torch.kernels import decode_attention as _decode
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import page_gather as _gather
+from repro_torch.kernels import ref
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
 
-__all__ = ["launch_counts", "reset_launch_counts", "paged_decode_attention",
-           "page_gather"]
+__all__ = ["launch_counts", "reset_launch_counts", "flash_attention",
+           "decode_attention", "paged_decode_attention", "page_gather"]
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """(B, Hq, S, D) prefill attention of every query against the keys
+    of its own sequence; see ``ref.flash_attention_ref``."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _flash.flash_attention(q, k, v, causal=causal, window=window)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len):
+    """(B, Hq, D) attention of one query token per sequence over a
+    contiguous cache; see ``ref.decode_attention_ref``."""
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k_cache, v_cache, kv_len)
+    return _decode.decode_attention(q, k_cache, v_cache, kv_len)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len):
@@ -25,7 +44,7 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len):
         return ref.paged_decode_attention_ref(
             q, k_pages, v_pages, page_table, kv_len
         )
-    return decode_attention.paged_decode_attention(
+    return _decode.paged_decode_attention(
         q, k_pages, v_pages, page_table, kv_len
     )
 

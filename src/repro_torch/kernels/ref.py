@@ -5,11 +5,16 @@ here), the oracle ``chip_smoke.py`` holds each CUDA kernel against on
 the card, and the counterparts of ``repro/kernels/ref.py`` that the CPU
 tests compare with the JAX package.
 
-One deliberate difference from the JAX oracle: a row with
-``kv_len == 0`` attends to nothing, and both the Pallas kernel and the
-CUDA kernel return zeros for it.  The plain versions here follow the
-kernels (``repro/kernels/ref.py`` returns the mean of page 0's V), and
-they get there without ``-inf`` arithmetic, so no NaN can appear.
+Two deliberate differences from the JAX oracles:
+
+- GQA by index: K/V keep their Hkv heads and query head ``h`` reads KV
+  head ``h // (Hq / Hkv)``; the JAX model repeats K/V to Hq before its
+  kernels, which the port never does.
+- A decode row with ``kv_len == 0`` attends to nothing, and both the
+  Pallas kernels and the CUDA kernels return zeros for it.  The plain
+  versions here follow the kernels (``repro/kernels/ref.py`` returns the
+  mean of V), and they get there without ``-inf`` arithmetic, so no NaN
+  can appear.
 """
 
 from __future__ import annotations
@@ -19,21 +24,54 @@ import torch
 NEG_INF = -1e30
 
 
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        window: int = 0) -> torch.Tensor:
+    """q: (B, Hq, S, D); k, v: (B, Hkv, S, D) with Hq % Hkv == 0 ->
+    (B, Hq, S, D) in q's dtype; plain softmax attention.
+
+    Query head ``h`` attends with KV head ``h // (Hq / Hkv)`` (GQA by
+    index; the JAX oracle takes K/V already repeated to Hq).  Key ``k``
+    is kept for query ``q`` when ``k <= q`` (if causal) and
+    ``q - k < window`` (if ``window > 0``).  Scores and softmax in f32,
+    the probabilities cast to V's dtype for the weighted sum."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    scale = 1.0 / (d ** 0.5)
+    qg = q.reshape(b, hkv, hq // hkv, s, d)
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) * scale
+    pos = torch.arange(s, device=q.device)
+    qi, ki = pos[:, None], pos[None, :]
+    mask = torch.ones(s, s, dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= ki <= qi
+    if window > 0:
+        mask &= (qi - ki) < window
+    probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs.to(v.dtype), v)
+    return out.reshape(b, hq, s, d).to(q.dtype)
+
+
 def decode_attention_ref(q, k_cache, v_cache, kv_len) -> torch.Tensor:
-    """q: (B, H, D); caches: (B, H, S, D); kv_len: (B,) -> (B, H, D).
+    """q: (B, Hq, D); caches: (B, Hkv, S, D) with Hq % Hkv == 0; kv_len:
+    (B,) -> (B, Hq, D).  Positions ``[0, kv_len)`` are attended; query
+    head ``h`` reads KV head ``h // (Hq / Hkv)``.
 
     Scores and softmax in f32; the probabilities are cast to V's dtype
     for the weighted sum, as the JAX oracle does."""
-    scale = 1.0 / (q.shape[-1] ** 0.5)
+    b, hq, d = q.shape
+    hkv = k_cache.shape[1]
+    scale = 1.0 / (d ** 0.5)
+    qg = q.reshape(b, hkv, hq // hkv, d)
     scores = torch.einsum(
-        "bhd,bhkd->bhk", q.float(), k_cache.float()
+        "bhgd,bhkd->bhgk", qg.float(), k_cache.float()
     ) * scale
     pos = torch.arange(k_cache.shape[2], device=q.device)
     mask = pos[None, :] < kv_len[:, None]
-    scores = torch.where(mask[:, None, :], scores, NEG_INF)
+    scores = torch.where(mask[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhk,bhkd->bhd", probs.to(v_cache.dtype), v_cache)
-    return torch.where((kv_len > 0)[:, None, None], out, 0).to(q.dtype)
+    out = torch.einsum("bhgk,bhkd->bhgd", probs.to(v_cache.dtype), v_cache)
+    out = torch.where((kv_len > 0)[:, None, None, None], out, 0)
+    return out.reshape(b, hq, d).to(q.dtype)
 
 
 def paged_gather(pages, page_table) -> torch.Tensor:
@@ -67,12 +105,8 @@ def page_gather_ref(pages, page_ids) -> torch.Tensor:
 
 def paged_decode_attention_ref(q, k_pages, v_pages, page_table,
                                kv_len) -> torch.Tensor:
-    """Gather-then-attend oracle for the paged kernel (GQA-aware:
-    pages carry Hkv heads, broadcast to q's Hq after the gather)."""
+    """Gather-then-attend oracle for the paged kernel (GQA by index:
+    pages carry Hkv heads)."""
     k = paged_gather(k_pages, page_table)
     v = paged_gather(v_pages, page_table)
-    g = q.shape[1] // k.shape[1]
-    if g > 1:
-        k = k.repeat_interleave(g, dim=1)
-        v = v.repeat_interleave(g, dim=1)
     return decode_attention_ref(q, k, v, kv_len)

@@ -1,12 +1,23 @@
 """Load the JAX package's parameter tree into the port's :class:`Model`.
 
-``repro.models.build.Model.init(key)`` builds a tree whose per-layer
-leaves are stacked along a leading layer dim
-(``segments[0]["attn"]["wq"]`` is ``(L, d, Hq*hd)``).  The caller turns
-it into numpy (``jax.tree.map(np.asarray, params)``) — this module
-imports no JAX — and :func:`params_from_jax` returns the matching
-``state_dict`` for ``Model.load_state_dict``.  Both sides keep the
-``(in, out)`` weight layout, so nothing is transposed.
+``repro.models.build.Model.init(key)`` builds one subtree per *segment*
+(``repro/models/build.py::build_segments``):
+
+- a uniform segment of ``count`` layers stacks each leaf along one lead
+  dim: ``segments[i]["attn"]["wq"]`` is ``(count, d, Hq*hd)``;
+- a **group** segment (a periodic pattern, gemma3's 5 local : 1 global)
+  holds one subtree per inner kind whose leaves carry two lead dims,
+  ``(n_groups, inner_count, …)``: ``segments[0]["local"]["attn"]["wq"]``
+  is ``(5, 5, d, Hq*hd)`` at full width.
+
+The port's layers are one flat list in execution order — group g, then
+its inner kinds in order, then the segments after the group — so leaf
+``[g, j]`` of inner kind ``kind`` is layer ``offset + g * period +
+inner_offset(kind) + j``.  The caller turns the JAX tree into numpy
+(``jax.tree.map(np.asarray, params)``) — this module imports no JAX —
+and :func:`params_from_jax` returns the matching ``state_dict`` for
+``Model.load_state_dict``.  Both sides keep the ``(in, out)`` weight
+layout, so nothing is transposed.
 """
 
 from __future__ import annotations
@@ -15,6 +26,26 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+
+_BLOCK_PARTS = {"ln1": 0, "ln2": 0, "attn": 1, "ffn": 1}  # part -> depth
+
+
+def build_segments(cfg: ModelConfig) -> list[tuple]:
+    """The JAX package's segment list, as ``(kind, count, inner)``
+    (copy of ``repro/models/build.py::build_segments``): a pattern that
+    repeats a pair of kinds at least twice from its start becomes one
+    ``("group", n_rep, pair)`` segment, followed by the rest."""
+    pattern = list(cfg.layer_pattern())
+    if len(pattern) >= 4 and pattern[0][0] != pattern[1][0]:
+        pair = (pattern[0], pattern[1])
+        n_rep = 0
+        while (2 * n_rep + 1 < len(pattern)
+               and (pattern[2 * n_rep], pattern[2 * n_rep + 1]) == pair):
+            n_rep += 1
+        if n_rep >= 2:
+            return ([("group", n_rep, pair)]
+                    + [(k, c, None) for k, c in pattern[2 * n_rep:]])
+    return [(k, c, None) for k, c in pattern]
 
 
 def _leaves(tree, path=()):
@@ -28,19 +59,39 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
+def _layer_map(cfg: ModelConfig) -> dict[tuple, tuple]:
+    """(segment index, inner kind or None) -> (flat index of each
+    stacked entry, in the leaf's row-major lead-dim order; lead shape)."""
+    out = {}
+    offset = 0
+    for si, (kind, count, inner) in enumerate(build_segments(cfg)):
+        if kind != "group":
+            out[(si, None)] = (list(range(offset, offset + count)), (count,))
+            offset += count
+            continue
+        period = sum(c for _, c in inner)
+        inner_off = 0
+        for ikind, icount in inner:
+            idx = [offset + g * period + inner_off + j
+                   for g in range(count) for j in range(icount)]
+            out[(si, ikind)] = (idx, (count, icount))
+            inner_off += icount
+        offset += count * period
+    assert offset == cfg.n_layers, (offset, cfg.n_layers)
+    return out
+
+
 def params_from_jax(tree, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     """Map every leaf of the JAX tree to the port's parameter name(s).
 
     Top-level leaves (``embed``, ``head``, ``final_norm``) map to one
-    tensor each; a stacked layer leaf maps to ``cfg.n_layers`` tensors,
-    one per ``layers.{i}.…``.  Raises on a leaf with no counterpart, on
-    a stacked leaf whose lead dim is not ``n_layers``, and on two leaves
-    that would land on one name, so each JAX leaf is used exactly once.
+    tensor each; a stacked layer leaf maps to one tensor per layer it
+    stacks, ``layers.{i}.…``.  Raises on a leaf with no counterpart, on
+    a stacked leaf whose lead dims do not match its segment, and on two
+    leaves that would land on one name, so each JAX leaf is used exactly
+    once.
     """
-    if cfg.layer_pattern() != (("dense", cfg.n_layers),):
-        raise NotImplementedError(
-            f"{cfg.name}: only single dense-segment models are ported"
-        )
+    layer_map = _layer_map(cfg)
     out: dict[str, torch.Tensor] = {}
 
     def put(name, arr):
@@ -50,22 +101,30 @@ def params_from_jax(tree, cfg: ModelConfig) -> dict[str, torch.Tensor]:
 
     for path, leaf in _leaves(tree):
         arr = np.asarray(leaf)
+        where = "/".join(map(str, path))
         if path in (("embed",), ("head",), ("final_norm",)):
             put(path[0], arr)
-        elif path[:2] == ("segments", 0) and (
-                path[2:3] in (("ln1",), ("ln2",)) and len(path) == 3
-                or path[2:3] in (("attn",), ("ffn",)) and len(path) == 4):
-            if arr.shape[0] != cfg.n_layers:
-                raise ValueError(
-                    f"{'/'.join(map(str, path))}: lead dim {arr.shape[0]} "
-                    f"!= n_layers {cfg.n_layers}"
-                )
-            rest = ".".join(str(p) for p in path[2:])
-            for i in range(cfg.n_layers):
-                put(f"layers.{i}.{rest}", arr[i])
-        else:
+            continue
+        key = part = None
+        if path[:1] == ("segments",) and len(path) >= 3:
+            si, rest = path[1], path[2:]
+            if (si, None) in layer_map:
+                key = (si, None)
+            elif (si, rest[0]) in layer_map:
+                key, rest = (si, rest[0]), rest[1:]
+            if key is not None and rest and rest[0] in _BLOCK_PARTS:
+                part = rest
+        if part is None or len(part) != 1 + _BLOCK_PARTS[part[0]]:
             raise ValueError(
-                f"JAX leaf {'/'.join(map(str, path))} has no counterpart "
-                f"in the port's Model"
+                f"JAX leaf {where} has no counterpart in the port's Model"
             )
+        idx, lead = layer_map[key]
+        if arr.shape[:len(lead)] != lead:
+            raise ValueError(
+                f"{where}: lead dims {arr.shape[:len(lead)]} != {lead}"
+            )
+        flat = arr.reshape((-1,) + arr.shape[len(lead):])
+        name = ".".join(part)
+        for row, i in enumerate(idx):
+            put(f"layers.{i}.{name}", flat[row])
     return out

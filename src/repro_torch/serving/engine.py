@@ -1,7 +1,12 @@
-"""Inference engine of the port: continuous batching over the paged plane.
+"""Inference engine of the port: continuous batching over a real model.
 
-Counterpart of ``repro/serving/engine.py`` on its paged / chunked plane:
-attention K/V lives in a shared pool of fixed-size pages
+Counterpart of ``repro/serving/engine.py``, with its two execution
+planes, picked as there: ``paged=None`` takes the paged plane when the
+model supports it (``Model.supports_chunked``) and the slot plane
+otherwise.
+
+**Paged / chunked plane** (qwen7b): attention K/V lives in a shared
+pool of fixed-size pages
 (:class:`~repro_torch.serving.kv_manager.PagedKVManager`); prompts
 prefill in chunks sized by the Eq. 5 token budget; the engine alternates
 one prefill chunk with one decode step whenever both have work; decode
@@ -18,17 +23,29 @@ materializes its cache (through the page-gather kernel) and
 ``import_kv`` installs it on another engine, which continues
 token-identically.
 
+**Slot plane** (gemma3-4b, whose sliding-window layers the paged plane
+does not run): each request owns one row of contiguous per-layer caches
+(``Model.init_cache``).  Queued prompts are admitted under the Eq. 5
+token budget at the engine boundary, prefilled whole in one padded
+batch (``Model.prefill``, prompt length padded to a power of two) and
+copied into their rows (``insert_rows``); decode runs per token
+(``Model.decode_step``) or in fused K-blocks
+(``Model.decode_block_slots``); a retired row is wiped
+(``clear_rows``).  As in the JAX engine, ``export_kv`` / ``import_kv``
+raise on this plane, ``kv_bytes_of`` returns None, and the prefix cache
+and speculative decoding are refused with ``ValueError``.
+
 Not ported yet, and refused with ``NotImplementedError`` rather than
-run some other way: the slot plane (``paged=False``), the prefix cache
-and speculative decoding.  ``fn_cache`` and ``warm_decode_blocks`` have
-no counterpart — PyTorch runs eagerly, with nothing to compile.
+run some other way: the prefix cache and speculative decoding on the
+paged plane.  ``fn_cache`` and ``warm_decode_blocks`` have no
+counterpart — PyTorch runs eagerly, with nothing to compile.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,7 +58,9 @@ from repro_torch.serving.kv_manager import (
     KVPayload,
     PagedKVManager,
     SlotManager,
+    clear_rows,
     gather_slot_kv,
+    insert_rows,
     scatter_slot_kv,
 )
 
@@ -69,10 +88,23 @@ class EngineConfig:
 class InferenceEngine:
     def __init__(self, model: Model, cfg: EngineConfig,
                  profiler: Optional[FittedLatencyModel] = None):
-        if cfg.paged is False:
-            raise NotImplementedError(
-                "the slot plane (paged=False) is not ported yet "
-                "(ROADMAP.md §1 'Slot plane')")
+        self.paged = (model.supports_chunked if cfg.paged is None
+                      else cfg.paged)
+        if self.paged and not model.supports_chunked:
+            raise ValueError(
+                "model has segments the chunked/paged plane does not "
+                "support; use paged=False"
+            )
+        if not self.paged and cfg.prefix_cache:
+            raise ValueError(
+                "prefix caching requires the paged plane (pages are the "
+                "unit of sharing); this model/config runs the slot fallback"
+            )
+        if not self.paged and cfg.spec_decode:
+            raise ValueError(
+                "spec_decode requires the paged plane: rollback is "
+                "page-table truncation"
+            )
         if cfg.prefix_cache:
             raise NotImplementedError(
                 "prefix caching is not ported yet (ROADMAP.md §1 "
@@ -89,11 +121,16 @@ class InferenceEngine:
         self.cfg = cfg
         self.device = model.device
         self.slots = SlotManager(cfg.n_slots)
-        self.kv = PagedKVManager(cfg.n_slots, cfg.max_len, cfg.page_size,
-                                 cfg.n_pages, device=self.device)
-        self.caches = model.init_paged_cache(
-            cfg.n_slots, cfg.max_len, cfg.page_size, self.kv.n_pages)
-        self.axes = model.paged_cache_axes()
+        if self.paged:
+            self.kv = PagedKVManager(cfg.n_slots, cfg.max_len, cfg.page_size,
+                                     cfg.n_pages, device=self.device)
+            self.caches = model.init_paged_cache(
+                cfg.n_slots, cfg.max_len, cfg.page_size, self.kv.n_pages)
+            self.axes = model.paged_cache_axes()
+        else:
+            self.kv = None
+            self.caches = model.init_cache(cfg.n_slots, cfg.max_len)
+            self.axes = model.cache_axes()
         self.queue: list[Request] = []
         self.prefilling: dict[int, Request] = {}  # slot -> req
         self.active: dict[int, Request] = {}
@@ -126,6 +163,12 @@ class InferenceEngine:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
 
+    def kv_token_capacity(self) -> int:
+        """Token capacity of this engine's KV plane."""
+        if self.paged:
+            return self.kv.n_pages * self.cfg.page_size
+        return self.cfg.n_slots * self.cfg.max_len
+
     # -- intake -------------------------------------------------------------
     def validate(self, req: Request) -> None:
         """Raise if this engine could never serve ``req``."""
@@ -137,6 +180,8 @@ class InferenceEngine:
                 f"leaves no room to generate within "
                 f"max_len={self.cfg.max_len}"
             )
+        if not self.paged:
+            return
         # the request must fit the pool *alone*, so preemption can
         # always drain the pool far enough for someone to finish
         need = -(-min(len(req.prompt) + req.l_out, self.cfg.max_len)
@@ -163,8 +208,21 @@ class InferenceEngine:
 
     # -- one engine step ------------------------------------------------------
     def step(self) -> dict:
-        """Run one prefill chunk or one decode dispatch; returns event
-        info (``kind``: prefill_chunk | decode | idle)."""
+        """Run one prefill (chunk) or one decode dispatch; returns event
+        info (``kind``: prefill_chunk | prefill | decode | idle)."""
+        if self.paged:
+            return self._step_paged()
+        admitted = self._admit()
+        if admitted:
+            return self._prefill(admitted)
+        if self.active:
+            return self._decode_step()
+        return {"kind": "idle"}
+
+    # ==========================================================================
+    # Paged / chunked plane
+    # ==========================================================================
+    def _step_paged(self) -> dict:
         want_prefill = bool(
             self.prefilling or (self.queue and self.slots.n_free)
         )
@@ -313,8 +371,10 @@ class InferenceEngine:
         return True
 
     def _release_slot(self, s: int) -> None:
-        """Free every per-slot resource (pages, batch row)."""
-        self.kv.release(s)
+        """Free every per-slot resource (pages, cache row, batch row)."""
+        if self.kv is not None:
+            self.kv.release(s)
+        self.caches = clear_rows(self.caches, self.axes, [s])
         self.slots.free(s)
         self.pos[s] = 0
         self.last_token[s] = 0
@@ -338,6 +398,11 @@ class InferenceEngine:
         """Materialize request ``rid``'s cache + generation state for a
         hand-off.  The request must have completed prefill (parked, or
         mid-decode); its pages stay resident until ``evict``."""
+        if not self.paged:
+            raise RuntimeError(
+                "export_kv requires the paged plane (slot-plane caches "
+                "have no page-granular hand-off)"
+            )
         s = self._rid_slot.get(rid)
         if s is None:
             raise KeyError(f"request {rid} is not resident on this engine")
@@ -359,6 +424,8 @@ class InferenceEngine:
         """Install a migrated cache and join ``req`` to the decode batch.
         Allocates a slot + pages (the page size may differ from the
         source's); False if the engine cannot place it right now."""
+        if not self.paged:
+            raise RuntimeError("import_kv requires the paged plane")
         s = self.slots.alloc(req)
         if s is None:
             return False
@@ -386,7 +453,7 @@ class InferenceEngine:
         """Exact byte size export_kv would materialize for ``rid`` —
         from cache shapes, nothing gathered."""
         s = self._rid_slot.get(rid)
-        if s is None:
+        if s is None or not self.paged:
             return None
         n = int(self.pos[s])
         total = 0.0
@@ -452,11 +519,16 @@ class InferenceEngine:
             pos0[s] = int(self.pos[s])
         last_d, pos_d = self._device_state()
         eos = -1 if cfg.eos_token is None else cfg.eos_token
+        state = (last_d, pos_d, self._tensor(alive), self._tensor(rem), eos,
+                 cfg.max_len)
         t0 = time.perf_counter()
-        (toks, valid, last_f, pos_f), self.caches = self.model.decode_block(
-            self.caches, self.kv.device_table(), last_d, pos_d,
-            self._tensor(alive), self._tensor(rem), eos, cfg.max_len, k=k,
-        )
+        if self.paged:
+            out, self.caches = self.model.decode_block(
+                self.caches, self.kv.device_table(), *state, k=k)
+        else:
+            out, self.caches = self.model.decode_block_slots(
+                self.caches, *state, k=k)
+        toks, valid, last_f, pos_f = out
         self._sync()
         dt = time.perf_counter() - t0
         tk = toks.cpu().numpy()    # (n_slots, K)
@@ -528,8 +600,106 @@ class InferenceEngine:
             [int(self.pos[s]) for s in sorted(self.active)], dt)
         return self._finish_per_token_decode(nxt, dt)
 
+    # ==========================================================================
+    # Slot plane (monolithic prefill)
+    # ==========================================================================
+    def _admit(self) -> list[Request]:
+        """Eq. 5 at the engine boundary: the queue head, up to the free
+        slots and ``prefill_batch``, cut to the prompt tokens a prefill
+        may take without breaking the tightest TPOT."""
+        free = self.slots.n_free
+        if not free or not self.queue:
+            return []
+        take = self.queue[: min(free, self.cfg.prefill_batch)]
+        if self.cfg.slo_aware and self.active:
+            fitted = self.profiler.fitted
+            cur_lens = [int(self.pos[s]) for s in self.slots.active_slots()]
+            e_d = self.profiler.decode_step_time(cur_lens) if fitted else 0.0
+            tightest_tpot = min([r.tpot_slo for r in self.active.values()]
+                                + [r.tpot_slo for r in take])
+            tightest_ttft = min(r.ttft_slo for r in take)
+            budget = ntoken_limit(tightest_ttft, tightest_tpot, e_d,
+                                  self.profiler) if fitted else 10 ** 9
+            out, used = [], 0
+            for r in take:
+                if used + len(r.prompt) <= budget:
+                    out.append(r)
+                    used += len(r.prompt)
+            take = out
+        for r in take:
+            self.queue.remove(r)
+        return take
+
+    @staticmethod
+    def _pad_to(n: int) -> int:
+        """Prompt batches pad to a power of two from 8 up (the JAX
+        engine's bound on recompiles, kept so both engines run the same
+        shapes)."""
+        p = 8
+        while p < n:
+            p *= 2
+        return p
+
+    def _prefill(self, reqs: Sequence[Request]) -> dict:
+        b = len(reqs)
+        max_l = self._pad_to(max(len(r.prompt) for r in reqs))
+        tokens = np.zeros((b, max_l), np.int32)
+        lens = np.zeros((b,), np.int32)
+        for i, r in enumerate(reqs):
+            tokens[i, : len(r.prompt)] = r.prompt
+            lens[i] = len(r.prompt)
+        t0 = time.perf_counter()
+        logits, cache = self.model.prefill(
+            self._tensor(tokens), self._tensor(lens), cache_len=self.cfg.max_len)
+        self._sync()
+        dt = time.perf_counter() - t0
+        next_tokens = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+        self.clock += dt
+        self.n_dispatches += 1
+        self.profiler.observe_prefill([len(r.prompt) for r in reqs], dt)
+        self.n_prefill_tokens += int(lens.sum())
+
+        slots = []
+        tok_ev: list[tuple] = []
+        for i, r in enumerate(reqs):
+            s = self.slots.alloc(r)
+            assert s is not None
+            r.slot = s
+            r.prefill_progress = len(r.prompt)
+            if r.first_token_time is None:
+                r.first_token_time = self.clock
+            r.generated.append(int(next_tokens[i]))
+            r.tokens_done = len(r.generated)
+            tok_ev.append((r.rid, int(next_tokens[i]), self.clock))
+            r.state = RequestState.DECODING
+            self.active[s] = r
+            self._rid_slot[r.rid] = s
+            self.pos[s] = int(lens[i])
+            self.last_token[s] = int(next_tokens[i])
+            slots.append(s)
+        self._host_state_dirty = True
+        self.caches = insert_rows(self.caches, cache, self.axes, slots)
+        self._retire()
+        return {"kind": "prefill", "n": b, "time": dt,
+                "token_events": tok_ev}
+
+    def _decode_step(self) -> dict:
+        k = self._decode_block_k()
+        if k > 1:
+            return self._decode_block_step(k)
+        t0 = time.perf_counter()
+        logits, self.caches = self.model.decode_step(
+            self.caches, self._tensor(self.last_token), self._tensor(self.pos))
+        self._sync()
+        dt = time.perf_counter() - t0
+        nxt = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+        self.clock += dt
+        self.profiler.observe_decode(
+            [int(self.pos[s]) for s in self.slots.active_slots()], dt)
+        return self._finish_per_token_decode(nxt, dt)
+
     def _finish_per_token_decode(self, nxt, dt: float) -> dict:
-        """K == 1 tail: append the sampled token per active slot,
+        """K == 1 tail of both planes: append the sampled token per active slot,
         advance host state, account telemetry and retire."""
         n_tok = len(self.active)
         tok_ev: list[tuple] = []

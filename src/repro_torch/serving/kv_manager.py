@@ -11,6 +11,10 @@ the JAX package; :meth:`PagedKVManager.device_table` hands the table to
 the model as a torch tensor.  Prefix caching and speculative rollback
 (``truncate``) come with their ROADMAP item.
 
+On the slot plane each sequence owns one batch row of every cache
+leaf: :func:`insert_rows` copies a prefill's rows in and
+:func:`clear_rows` wipes a retired row, both in place.
+
 For a P/D hand-off, :func:`gather_slot_kv` linearizes one sequence's
 pages through the page-gather kernel (one launch per pool, all layers
 at once) and :func:`scatter_slot_kv` installs them on the destination
@@ -54,6 +58,9 @@ class SlotManager:
     @property
     def n_free(self) -> int:
         return len(self._free)
+
+    def active_slots(self) -> list[int]:
+        return sorted(self.owner)
 
 
 class PageAllocator:
@@ -195,6 +202,38 @@ def _map_leaves(fn, caches, axes, *rest):
     per-segment dicts)."""
     return [{k: fn(seg[k], ax[k], *(r[i][k] for r in rest)) for k in seg}
             for i, (seg, ax) in enumerate(zip(caches, axes))]
+
+
+def insert_rows(caches, new, axes, slots):
+    """Copy row i of ``new`` into row ``slots[i]`` of ``caches``, in
+    place, leaf by leaf (one ``index_copy_`` per leaf).
+
+    caches/new: same-structure trees (lists of per-layer or per-segment
+    dicts), ``new`` holding ``len(slots)`` rows; axes: the batch axis of
+    each leaf.  Returns ``caches``.
+    """
+    device = next(iter(caches[0].values())).device
+    dst = torch.as_tensor(slots, dtype=torch.long, device=device)
+
+    def put(full, ax, part):
+        full.index_copy_(ax, dst, part.to(full.dtype))
+        return full
+
+    return _map_leaves(put, caches, axes, new)
+
+
+def clear_rows(caches, axes, slots):
+    """Wipe the given slots in place: K/V rows to zero, int32 position
+    rows to -1.  Leaves whose axis is None (page pools: reclaimed by the
+    PageAllocator, never by row) pass through untouched."""
+    def wipe(full, ax):
+        if ax is None or not slots:
+            return full
+        idx = torch.as_tensor(slots, dtype=torch.long, device=full.device)
+        full.index_fill_(ax, idx, -1 if full.dtype == torch.int32 else 0)
+        return full
+
+    return _map_leaves(wipe, caches, axes)
 
 
 def _slot_state_not_ported(ax):

@@ -1,7 +1,10 @@
 """Engine of the PyTorch port against the JAX engine on the same
-weights: token-for-token generation across page and chunk sizes, under
-preemption, and through the P/D export/import round trip; plus the
-allocator invariants on the port's own copy and the engine's refusals.
+weights: token-for-token generation on the paged plane across page and
+chunk sizes, under preemption and through the P/D export/import round
+trip; on the slot plane for gemma3 (picked by itself) and qwen7b
+(``paged=False``) with per-token and fused decode; plus the allocator
+and slot-row invariants on the port's own copy and the engine's
+refusals.
 
 f32 on the CPU.  Greedy tokens must be identical: both engines
 schedule deterministically (no profiler fit in these runs), so the
@@ -29,6 +32,8 @@ from repro_torch.serving.engine import EngineConfig, InferenceEngine  # noqa
 from repro_torch.serving.kv_manager import (  # noqa: E402
     PageAllocator,
     PagedKVManager,
+    clear_rows,
+    insert_rows,
 )
 
 CFG = get_smoke_config("qwen7b")
@@ -37,7 +42,15 @@ JPARAMS = JMODEL.init(jax.random.key(0))
 MODEL = Model(CFG, device="cpu")
 MODEL.load_state_dict(params_from_jax(jax.tree.map(np.asarray, JPARAMS),
                                       CFG))
-_FN_CACHE: dict = {}   # jitted JAX steps shared by every JAX engine
+_FN_CACHE: dict = {}   # jitted JAX steps shared by every qwen7b JAX engine
+
+GEMMA_CFG = get_smoke_config("gemma3-4b")
+GEMMA_JMODEL = jax_build(jax_smoke("gemma3-4b"))
+GEMMA_JPARAMS = GEMMA_JMODEL.init(jax.random.key(2))
+GEMMA = Model(GEMMA_CFG, device="cpu")
+GEMMA.load_state_dict(params_from_jax(
+    jax.tree.map(np.asarray, GEMMA_JPARAMS), GEMMA_CFG))
+_GEMMA_FN_CACHE: dict = {}
 
 
 def _prompts(seed, lens):
@@ -173,10 +186,35 @@ def test_export_import_across_page_sizes_and_mid_decode():
 
 
 def test_engine_refuses_what_is_not_ported():
-    for kw in (dict(paged=False), dict(prefix_cache=True),
-               dict(spec_decode=True)):
+    """Not ported yet: prefix cache and spec decode on the paged plane
+    (NotImplementedError, naming the ROADMAP item).  Refused on the slot
+    plane exactly as the JAX engine refuses them: ``paged=True`` on
+    gemma3, prefix cache and spec decode (ValueError), P/D export and
+    import (RuntimeError), ``kv_bytes_of`` (None)."""
+    for kw in (dict(prefix_cache=True), dict(spec_decode=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             InferenceEngine(MODEL, EngineConfig(**kw))
+    for model, jmodel, jparams, kw in (
+        (GEMMA, GEMMA_JMODEL, GEMMA_JPARAMS, dict(paged=True)),
+        (GEMMA, GEMMA_JMODEL, GEMMA_JPARAMS, dict(prefix_cache=True)),
+        (MODEL, JMODEL, JPARAMS, dict(paged=False, prefix_cache=True)),
+        (MODEL, JMODEL, JPARAMS, dict(paged=False, spec_decode=True)),
+    ):
+        with pytest.raises(ValueError) as want:
+            JEngine(jmodel, jparams, JEngineConfig(**kw))
+        with pytest.raises(ValueError) as got:
+            InferenceEngine(model, EngineConfig(**kw))
+        assert str(got.value) == str(want.value)
+    slot = InferenceEngine(GEMMA, EngineConfig(n_slots=2, max_len=32))
+    req = Request.from_prompt(0, np.arange(12, dtype=np.int32), 4)
+    slot.submit(req)
+    slot.step()                                   # prefilled, decoding
+    assert not slot.paged and slot.kv is None
+    with pytest.raises(RuntimeError, match="paged plane"):
+        slot.export_kv(req.rid)
+    with pytest.raises(RuntimeError, match="paged plane"):
+        slot.import_kv(None, Request.from_prompt(1, np.zeros(3, np.int32), 2))
+    assert slot.kv_bytes_of(req.rid) is None
     eng = InferenceEngine(MODEL, EngineConfig(n_slots=2, max_len=16))
     with pytest.raises(ValueError):
         eng.submit(Request.from_prompt(0, np.zeros(0, np.int32), 2))
@@ -196,6 +234,107 @@ def test_release_weights_needs_a_drained_engine():
     eng.run_until_done()
     eng.release_weights()
     assert eng.model is None
+
+
+# ---------------------------------------------------------------------------
+# Slot plane
+# ---------------------------------------------------------------------------
+
+
+def _serve(engine, make_req, prompts, max_new):
+    reqs = [make_req(i, p.copy(), m)
+            for i, (p, m) in enumerate(zip(prompts, max_new))]
+    for r in reqs:
+        engine.submit(r)
+    fin = engine.run_until_done(max_steps=500)
+    assert len(fin) == len(reqs)
+    return [r.generated for r in reqs]
+
+
+@pytest.mark.parametrize("decode_block", [1, 8])
+@pytest.mark.parametrize("arch", ["gemma3-4b", "qwen7b"])
+def test_slot_plane_tokens_match_jax(arch, decode_block):
+    """gemma3 takes the slot plane by itself (its local layers), qwen7b
+    when asked (``paged=False``).  Prompts run past the window of 8, so
+    local layers prefill through the band and decode through the ring;
+    3 slots for 6 requests, so rows are cleared and reused."""
+    if arch == "gemma3-4b":
+        model, jmodel, jparams, fn_cache = (GEMMA, GEMMA_JMODEL,
+                                            GEMMA_JPARAMS, _GEMMA_FN_CACHE)
+        ekw = dict(paged=None)
+    else:
+        model, jmodel, jparams, fn_cache = MODEL, JMODEL, JPARAMS, _FN_CACHE
+        ekw = dict(paged=False)
+    ekw.update(n_slots=3, max_len=64, prefill_batch=2,
+               decode_block=decode_block)
+    prompts = _prompts(decode_block + 1, (13, 5, 21, 9, 3, 17))
+    max_new = [6, 9, 4, 12, 5, 7]
+    eng = InferenceEngine(model, EngineConfig(**ekw))
+    jeng = JEngine(jmodel, jparams, JEngineConfig(**ekw), fn_cache=fn_cache)
+    assert eng.paged is jeng.paged is False
+    got = _serve(eng, Request.from_prompt, prompts, max_new)
+    want = _serve(jeng, JRequest.from_prompt, prompts, max_new)
+    assert got == want
+    assert [len(g) for g in got] == max_new
+    assert eng.decode_block_hist == jeng.decode_block_hist
+    assert eng.n_dispatches == jeng.n_dispatches
+    assert eng.n_prefill_tokens == jeng.n_prefill_tokens
+    assert eng.kv_token_capacity() == jeng.kv_token_capacity() == 3 * 64
+    assert eng.slots.n_free == 3
+    # every retired row was wiped; idle rows ride along in later decode
+    # steps at position 0 (as in JAX), so only slot 0 may hold data
+    for cache in eng.caches:
+        assert (cache["pos"][:, 1:] == -1).all()
+        assert not cache["k"][:, :, 1:].any()
+
+
+def test_qwen_slot_plane_tokens_identical_to_paged_plane():
+    """The monolithic slot plane generates token for token what the
+    chunked paged plane generates, for every chunk size (mirrors
+    tests/test_decode_consistency.py on the port)."""
+    prompts = _prompts(7, (5, 21, 11, 3))
+
+    def run(paged, chunk):
+        eng = InferenceEngine(MODEL, EngineConfig(
+            n_slots=2, max_len=48, prefill_batch=2, paged=paged,
+            chunk_size=chunk, page_size=4))
+        out = _serve(eng, Request.from_prompt, prompts, [4] * 4)
+        if paged:
+            assert eng.kv.n_free_pages == eng.kv.n_pages
+        return out
+
+    base = run(paged=False, chunk=32)
+    for chunk in (5, 32):
+        assert run(paged=True, chunk=chunk) == base, chunk
+
+
+def test_insert_and_clear_rows_in_place():
+    """insert_rows copies prefill rows into chosen slots, clear_rows
+    zeroes K/V and sets pos to -1, both in place; page pools (axis
+    None) pass through untouched."""
+    caches = GEMMA.init_cache(4, 16)
+    axes = GEMMA.cache_axes()
+    _, new = GEMMA.prefill(torch.arange(16, dtype=torch.int32).reshape(2, 8),
+                           torch.tensor([8, 5], dtype=torch.int32),
+                           cache_len=16)
+    ptrs = [c["k"].data_ptr() for c in caches]
+    out = insert_rows(caches, new, axes, [3, 1])
+    assert [c["k"].data_ptr() for c in out] == ptrs
+    for got, src in zip(out, new):
+        for leaf in ("k", "v", "pos"):
+            assert torch.equal(got[leaf][3], src[leaf][0])
+            assert torch.equal(got[leaf][1], src[leaf][1])
+        assert (got["pos"][[0, 2]] == -1).all()
+    assert (out[5]["pos"][1] == torch.tensor(
+        [0, 1, 2, 3, 4] + [-1] * 11, dtype=torch.int32)).all()
+    clear_rows(out, axes, [3])
+    for got, src in zip(out, new):
+        assert (got["pos"][3] == -1).all() and not got["k"][3].any()
+        assert torch.equal(got["v"][1], src["v"][1])
+    pools = MODEL.init_paged_cache(2, 8, 4)
+    pools[0]["k_pages"].fill_(1.0)
+    clear_rows(pools, MODEL.paged_cache_axes(), [0])
+    assert (pools[0]["k_pages"] == 1.0).all()
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import _build, decode_attention, ops, ref  # noqa: E402,E501
+from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import page_gather as gather_mod  # noqa: E402
 from repro_torch.serving.kv_manager import PagedKVManager  # noqa: E402
 
@@ -161,6 +162,53 @@ def test_decode_attention_plain_matches_jax():
            jref.decode_attention_ref(*map(jnp.asarray, (q, k, v, kv_len))))
 
 
+def _attn_inputs(seed, b, hq, hkv, s, d):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64)])
+def test_flash_attention_plain_matches_jax(causal, window):
+    """GQA 4/2 by index in the port; the JAX oracle and the Pallas
+    kernel (interpret mode) get K/V repeated to Hq, as the JAX model
+    feeds them."""
+    jnp, jref, _, _ = _jax()
+    from repro.kernels.flash_attention import flash_attention as pl_flash
+    q, k, v = _attn_inputs(int(causal) + window, 2, 4, 2, 128, 16)
+    got = ref.flash_attention_ref(*_t(q, k, v), causal=causal, window=window)
+    kr, vr = (jnp.repeat(jnp.asarray(a), 2, axis=1) for a in (k, v))
+    want = jref.flash_attention_ref(jnp.asarray(q), kr, vr, causal=causal,
+                                    window=window)
+    pallas = pl_flash(jnp.asarray(q), kr, vr, causal=causal, window=window,
+                      block_q=64, block_k=64, interpret=True)
+    _close(got, want)
+    _close(got, pallas)
+
+
+def test_decode_attention_plain_gqa_matches_jax_and_pallas():
+    """GQA 4/2 by index, and kv_len == 0 gives zeros, as the Pallas
+    kernel does (the JAX oracle returns the mean of V there)."""
+    jnp, jref, _, _ = _jax()
+    from repro.kernels.decode_attention import decode_attention as pl_decode
+    rng = np.random.default_rng(6)
+    b, hq, hkv, s, d = 4, 4, 2, 256, 16
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, hkv, s, d)).astype(np.float32)
+            for _ in range(2))
+    kv_len = np.array([256, 37, 0, 1], np.int32)
+    got = ref.decode_attention_ref(*_t(q, k, v, kv_len)).numpy()
+    kr, vr = (jnp.repeat(jnp.asarray(a), 2, axis=1) for a in (k, v))
+    args = (jnp.asarray(q), kr, vr, jnp.asarray(kv_len))
+    want = np.asarray(jref.decode_attention_ref(*args))
+    pallas = np.asarray(pl_decode(*args, interpret=True))
+    live = kv_len > 0
+    _close(got[live], want[live])
+    _close(got, pallas)
+    assert (got[2] == 0).all() and (pallas[2] == 0).all()
+    assert not np.isnan(got).any()
+
+
 def test_paged_gather_plain_matches_jax():
     jnp, jref, _, _ = _jax()
     b, h, s, d, ps = 3, 2, 32, 16, 8
@@ -200,6 +248,15 @@ def test_ops_send_cpu_tensors_to_the_plain_versions():
     table, _, _, k_pages, v_pages, kv_len = _paged_fixture(1, 2, 2, 16, 8, 4)
     q = torch.randn(2, 2, 8, generator=torch.Generator().manual_seed(0))
     before = ops.launch_counts()
+    qf, kf, vf = _t(*_attn_inputs(0, 1, 4, 2, 40, 16))
+    torch.testing.assert_close(
+        ops.flash_attention(qf, kf, vf, causal=True, window=8),
+        ref.flash_attention_ref(qf, kf, vf, causal=True, window=8),
+        rtol=0, atol=0)
+    lens = torch.tensor([17], dtype=torch.int32)
+    torch.testing.assert_close(
+        ops.decode_attention(qf[:, :, 0], kf, vf, lens),
+        ref.decode_attention_ref(qf[:, :, 0], kf, vf, lens), rtol=0, atol=0)
     out = ops.paged_decode_attention(q, *_t(k_pages, v_pages, table, kv_len))
     torch.testing.assert_close(out, ref.paged_decode_attention_ref(
         q, *_t(k_pages, v_pages, table, kv_len)), rtol=0, atol=0)
@@ -232,7 +289,8 @@ def test_launch_counts_only_a_launch_the_entry_point_reports(monkeypatch,
         _build.launch("paged_decode_attention", 1, 2)
     assert calls == [(1, 2)]
     assert ops.launch_counts() == {"paged_decode_attention": counted,
-                                   "page_gather": 0}
+                                   "page_gather": 0, "flash_attention": 0,
+                                   "decode_attention": 0}
     ops.reset_launch_counts()
 
 
@@ -247,6 +305,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         gather_mod.page_gather(torch.zeros(1, 2, 2, 4, 8),
                                torch.zeros(2, dtype=torch.int32))
+    x = torch.zeros(1, 2, 8, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_mod.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_attention.decode_attention(x[:, :, 0], x, x,
+                                          torch.ones(1, dtype=torch.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -267,10 +331,14 @@ def cuda():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hq,hkv,d,ps", [
     (3, 2, 2, 16, 4), (3, 2, 2, 8, 8), (2, 6, 2, 16, 4), (4, 4, 4, 128, 16),
-    (2, 40, 8, 128, 16), (2, 4, 4, 64, 16),
+    (2, 40, 8, 128, 16), (2, 4, 4, 64, 16), (3, 4, 2, 64, 80),
+    (2, 8, 4, 128, 48),
 ])
 def test_paged_decode_attention_kernel_matches_plain(cuda, dtype, b, hq,
                                                      hkv, d, ps):
+    """GQA, poisoned stale offsets, a kv_len == 0 row; the last two
+    cases hold 640 and 384 positions a row, so the split-KV grid cuts
+    them into chunks of 214 and 192 that do not end on a page."""
     dt = getattr(torch, dtype)
     s = 8 * ps
     table, _, _, k_pages, v_pages, kv_len = _paged_fixture(
@@ -315,14 +383,14 @@ def test_empty_calls_launch_nothing_and_count_nothing(cuda):
                                  torch.zeros(0, dtype=torch.int32,
                                              device=cuda))
     assert out.shape == (1, 2, 0, 16)
-    assert ops.launch_counts() == {"paged_decode_attention": 0,
-                                   "page_gather": 0}
+    assert set(ops.launch_counts().values()) == {0}
     decode_attention.paged_decode_attention(
         torch.zeros(2, 2, 16, device=cuda), pages, pages, table, kv_len)
     gather_mod.page_gather(pages[None], table[0])
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"paged_decode_attention": 1,
-                                   "page_gather": 1}
+                                   "page_gather": 1, "flash_attention": 0,
+                                   "decode_attention": 0}
 
 
 @pytest.mark.cuda
@@ -343,3 +411,54 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take(cuda):
             torch.zeros(2, 2, 12, device=cuda),
             torch.zeros(4, 2, 4, 12, device=cuda),
             torch.zeros(4, 2, 4, 12, device=cuda), table, kv_len)
+
+
+def _card_attn(cuda, seed, b, hq, hkv, s, d, dt):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=cuda).to(dt)
+            for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (2, 4, 2, 128, 16, True, 0), (1, 2, 2, 40, 32, True, 0),
+    (2, 2, 1, 200, 64, False, 0), (1, 4, 4, 130, 128, True, 48),
+    (2, 8, 4, 8, 256, True, 0), (1, 8, 4, 300, 256, True, 100),
+    (1, 2, 2, 64, 64, False, 16),
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, b, hq, hkv, s, d,
+                                              causal, window):
+    """Ragged S (not a multiple of the 64-row tile), GQA, causal,
+    windowed and bidirectional, D from 16 to 256."""
+    dt = getattr(torch, dtype)
+    q, k, v = _card_attn(cuda, s + d, b, hq, hkv, s, d, dt)
+    got = flash_mod.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    tol = TOL if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (3, 4, 2, 24, 16), (4, 8, 4, 600, 256), (3, 4, 4, 513, 128),
+    (2, 6, 2, 40, 64),
+])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, b, hq, hkv, s, d):
+    """Any S (split over blocks of 256 positions), GQA, and a kv_len == 0
+    row that must come back as zeros."""
+    dt = getattr(torch, dtype)
+    q, k, v = _card_attn(cuda, s, b, hq, hkv, s, d, dt)
+    q = q[:, :, 0].contiguous()
+    kv_len = torch.as_tensor(
+        np.random.default_rng(s).integers(1, s + 1, size=b).astype(np.int32),
+        device=cuda)
+    kv_len[0] = 0
+    got = decode_attention.decode_attention(q, k, v, kv_len)
+    want = ref.decode_attention_ref(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    tol = TOL if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert (got[0] == 0).all()

@@ -1,13 +1,17 @@
 """Model of the PyTorch port against the JAX ``Model`` on the same
-weights: parameter conversion, ``chunk_step`` logits, ``decode_block``
-tokens and stopping, and the capability refusals.
+weights: parameter conversion (one dense segment, and gemma3's
+local/global segments and groups), ``chunk_step`` logits and
+``decode_block`` tokens on the paged plane, ``prefill`` /
+``decode_step`` logits and ``decode_block_slots`` tokens on the slot
+plane, and the capability refusals.
 
 f32 on the CPU.  Logits tolerance 1e-4: the two frameworks sum the
-same f32 products in another order, through 2 layers and a 256-way
-head.
+same f32 products in another order, through up to 13 layers and a
+256-way head.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -39,6 +43,32 @@ def _port_model():
     return m
 
 
+# gemma3 on the CPU: the smoke config (7 layers — three uniform
+# segments, local 5 / global 1 / local 1, window 8) and a 13-layer cut
+# that the JAX package lays out as a group segment of 2 x (5 local,
+# 1 global) plus a 1-layer local tail — the full config's layout
+GEMMA_LAYERS = {"smoke": None, "13-layer": 13}
+
+
+@functools.lru_cache(maxsize=None)
+def _gemma(which):
+    """(port cfg, JAX model, JAX params, numpy tree) for one gemma3 cut."""
+    cfg, jcfg = get_smoke_config("gemma3-4b"), jax_smoke("gemma3-4b")
+    if GEMMA_LAYERS[which]:
+        cfg = dataclasses.replace(cfg, n_layers=GEMMA_LAYERS[which])
+        jcfg = dataclasses.replace(jcfg, n_layers=GEMMA_LAYERS[which])
+    jm = jax_build(jcfg)
+    jp = jm.init(jax.random.key(1))
+    return cfg, jm, jp, jax.tree.map(np.asarray, jp)
+
+
+def _gemma_port(which, use_kernels=True):
+    cfg, _, _, tree = _gemma(which)
+    m = Model(cfg, device="cpu", use_kernels=use_kernels)
+    m.load_state_dict(params_from_jax(tree, cfg))
+    return m
+
+
 def test_params_from_jax_maps_every_leaf_exactly_once():
     sd = params_from_jax(TREE, CFG)
     leaves = jax.tree_util.tree_leaves_with_path(TREE)
@@ -57,6 +87,128 @@ def test_params_from_jax_maps_every_leaf_exactly_once():
     extra = dict(TREE, stray=np.zeros(3, np.float32))
     with pytest.raises(ValueError, match="stray"):
         params_from_jax(extra, CFG)
+
+
+@pytest.mark.parametrize("which", list(GEMMA_LAYERS))
+def test_params_from_jax_maps_gemma3_segments_and_groups(which):
+    """Each leaf used exactly once: a uniform segment's leaf fans out to
+    its count of layers, a group's ``(n_groups, inner_count, ...)`` leaf
+    to n_groups x inner_count layers, in execution order."""
+    cfg, jm, _, tree = _gemma(which)
+    sd = params_from_jax(tree, cfg)
+    leaves = jax.tree_util.tree_leaves_with_path(tree)
+    n_lead = {1: 0, 2: 0}
+    fan = 0
+    for path, leaf in leaves:
+        if path[0].key != "segments":
+            fan += 1
+            continue
+        spec = jm.segments[path[1].idx]
+        lead = 2 if spec.kind == "group" else 1
+        n_lead[lead] += 1
+        fan += int(np.prod(leaf.shape[:lead]))
+    assert len(sd) == fan
+    assert bool(n_lead[2]) == (which == "13-layer")
+    model = Model(cfg, device="cpu")
+    assert set(sd) == set(model.state_dict())
+    model.load_state_dict(sd, strict=True)
+    wq = lambda i: model.layers[i].attn["wq"].numpy()  # noqa: E731
+    segs = tree["segments"]
+    if which == "13-layer":
+        np.testing.assert_array_equal(wq(1), segs[0]["local"]["attn"]["wq"][0, 1])
+        np.testing.assert_array_equal(wq(5), segs[0]["global"]["attn"]["wq"][0, 0])
+        np.testing.assert_array_equal(wq(6), segs[0]["local"]["attn"]["wq"][1, 0])
+        np.testing.assert_array_equal(wq(11), segs[0]["global"]["attn"]["wq"][1, 0])
+        np.testing.assert_array_equal(wq(12), segs[1]["attn"]["wq"][0])
+    else:
+        np.testing.assert_array_equal(wq(4), segs[0]["attn"]["wq"][4])
+        np.testing.assert_array_equal(wq(5), segs[1]["attn"]["wq"][0])
+        np.testing.assert_array_equal(wq(6), segs[2]["attn"]["wq"][0])
+    assert model.windows == [0 if k == "global" else cfg.window
+                             for k, n in cfg.layer_pattern()
+                             for _ in range(n)]
+    assert model.head is None          # tied: the head is embed.T
+
+
+@functools.lru_cache(maxsize=None)
+def _gemma_jax_run(which, n_decode=14):
+    """JAX prefill of three ragged prompts, then ``n_decode`` greedy
+    decode steps: the inputs and logits of every step."""
+    _, jm, jp, _ = _gemma(which)
+    rng = np.random.default_rng(3)
+    b, s, max_len = 3, 32, 64
+    lens = np.array([32, 13, 5], np.int32)
+    toks = rng.integers(0, 256, (b, s)).astype(np.int32)
+    lj, jc = jax.jit(jm.prefill, static_argnames="cache_len")(
+        jp, jnp.asarray(toks), jnp.asarray(lens), cache_len=max_len)
+    steps = [(toks, lens, np.asarray(lj))]
+    pos, last = lens.copy(), np.asarray(lj).argmax(-1).astype(np.int32)
+    step = jax.jit(jm.decode_step)
+    for _ in range(n_decode):
+        lj, jc = step(jp, jc, jnp.asarray(last), jnp.asarray(pos))
+        steps.append((last, pos, np.asarray(lj)))
+        last, pos = np.asarray(lj).argmax(-1).astype(np.int32), pos + 1
+    return steps, max_len
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+@pytest.mark.parametrize("which", list(GEMMA_LAYERS))
+def test_gemma3_prefill_and_decode_logits_match_jax(which, use_kernels):
+    """Ragged prompts (32, 13, 5 tokens) then 14 decode steps: row 2
+    decodes positions 5 to 18, across the window of 8 into the ring.
+    ``use_kernels`` picks the kernels' plain versions (flash and decode
+    attention) or the chunked / masked plain routes."""
+    steps, max_len = _gemma_jax_run(which)
+    model = _gemma_port(which, use_kernels)
+    (toks, lens, want), rest = steps[0], steps[1:]
+    got, caches = model.prefill(torch.as_tensor(toks), torch.as_tensor(lens),
+                                cache_len=max_len)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    assert [c["k"].shape[2] for c in caches] == [
+        max_len if w == 0 else w for w in model.windows]
+    for last, pos, want in rest:
+        got, caches = model.decode_step(caches, torch.as_tensor(last),
+                                        torch.as_tensor(pos))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4)
+    ring = caches[0]["pos"].numpy()          # a local layer's ring
+    assert sorted(ring[2]) == list(range(11, 19))   # positions 5..18 written
+
+
+def test_gemma3_decode_block_slots_matches_jax_with_mid_block_stops():
+    """Tokens, valid lanes, final last/pos identical to JAX's slot-plane
+    fused decode block — row 0 stopping on EOS and row 1 on its output
+    budget mid-block, row 2 frozen — crossing the window of 8."""
+    _, jm, jp, _ = _gemma("smoke")
+    model = _gemma_port("smoke")
+    b, max_len, k = 3, 32, 8
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, 256, (b, 6)).astype(np.int32)
+    lens = np.array([6, 4, 2], np.int32)
+    jblock = jax.jit(jm.decode_block_slots, static_argnames="k")
+
+    def run(eos, rem):
+        lj, jc = jax.jit(jm.prefill, static_argnames="cache_len")(
+            jp, jnp.asarray(toks), jnp.asarray(lens), cache_len=max_len)
+        _, tc = model.prefill(torch.as_tensor(toks), torch.as_tensor(lens),
+                              cache_len=max_len)
+        last = np.asarray(lj).argmax(-1).astype(np.int32)
+        args = (last, lens, np.array([True, True, False]), rem)
+        (jt, jv, jl, jpos), _ = jblock(
+            jp, jc, *map(jnp.asarray, args), jnp.int32(eos),
+            jnp.int32(max_len), k=k)
+        (tt, tv, tl, tpos), _ = model.decode_block_slots(
+            tc, *map(torch.as_tensor, args), eos, max_len, k=k)
+        for a, w in ((tt, jt), (tv, jv), (tl, jl), (tpos, jpos)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(w))
+        return tt.numpy(), tv.numpy()
+
+    toks_out, valid = run(-1, np.array([8, 8, 0], np.int32))
+    assert valid[:2].all() and not valid[2].any()
+    eos = int(toks_out[0, 3])        # row 0 emits it at lane 3
+    toks_out, valid = run(eos, np.array([8, 2, 0], np.int32))
+    first = int(np.argmax(toks_out[0] == eos))
+    assert valid[0, :first + 1].all() and not valid[0, first + 1:].any()
+    assert valid[1, :2].all() and not valid[1, 2:].any()
 
 
 def _run_both(ps, chunks, n_decode):
@@ -164,18 +316,25 @@ def test_decode_block_matches_jax_with_mid_block_stops():
 
 
 def test_supports_flags_and_refusals_mirror_jax():
-    """Where the JAX Model supports the paged plane, so does the port;
-    where it refuses (sliding windows, SSM), the port refuses to build
-    the model at all until those ROADMAP items land."""
+    """The port's capability flags equal the JAX Model's for qwen7b
+    (paged plane) and gemma3 (slot plane only: its sliding-window
+    layers refuse paged caches); the kinds not ported yet (SSM, MoE,
+    hybrid, encoder) refuse to build, naming their ROADMAP item."""
+    flags = ("supports_chunked", "supports_prefix_cache",
+             "supports_spec_decode")
     model = _port_model()
-    for flag in ("supports_chunked", "supports_prefix_cache",
-                 "supports_spec_decode"):
+    for flag in flags:
         assert getattr(model, flag) is getattr(JMODEL, flag) is True
-    for arch in ("gemma3-4b", "mamba2-2.7b", "olmoe-1b-7b"):
+    gemma = _gemma_port("smoke")
+    jgemma = _gemma("smoke")[1]
+    for flag in flags:
+        assert getattr(gemma, flag) is getattr(jgemma, flag) is False
+    with pytest.raises(ValueError, match="init_cache"):
+        gemma.init_paged_cache(2, 16, 4)
+    for arch in ("mamba2-2.7b", "olmoe-1b-7b", "zamba2-7b", "hubert-xlarge"):
         jcfg = jax_smoke(arch)
         fields = {f.name: getattr(jcfg, f.name)
                   for f in dataclasses.fields(ModelConfig)}
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(ModelConfig(**fields), device="cpu")
-    assert not jax_build(jax_smoke("gemma3-4b")).supports_chunked
     assert not jax_build(jax_smoke("mamba2-2.7b")).supports_prefix_cache
