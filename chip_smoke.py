@@ -4,16 +4,21 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
-``build/kernels/``), then runs six phases, each printing one JSON line:
+``build/kernels/``), then runs eight phases, each printing a JSON line
+(``hybrid`` a second one for its hand-off, ``parity`` one per model):
 
 1. ``device``  — the card, its power limit and the kernel build time.
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card (``rtol = atol =`` 2e-5 in f32 with TF32 off, 2e-2 in bf16, the
-   gather exactly) at the shapes the main paths give it, plus a ragged
-   and a bidirectional flash case and ``kv_len == 0`` decode rows; each
-   timed (device time from ``torch.profiler``'s events; the kernel also
-   with CUDA events over back-to-back calls) beside its bound, its plain
-   version and a PyTorch library call that computes the same function.
+   gather exactly, SSD 2e-3 in f32 as tests/test_kernels.py holds it)
+   at the shapes the main paths give it, plus a ragged and a
+   bidirectional flash case, ``kv_len == 0`` decode rows, the three
+   attention kernels at zamba2's head dim 112, SSD batches with pad
+   rows and RMSNorm at mamba2's norm shapes; each timed (device time
+   from ``torch.profiler``'s events; the kernel also with CUDA events
+   over back-to-back calls) beside its bound, its plain version and a
+   PyTorch library call that computes the same function, where one
+   exists (none computes SSD).
 3. ``serve``   — qwen7b at full width in bf16 (weights drawn on the card
    from a seeded generator) serving 16 Table-1 requests through the
    paged engine; every request must finish with its ``l_out`` tokens
@@ -29,11 +34,27 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
    must finish; flash attention must have run 34 times per prefill
    dispatch and the contiguous decode-attention kernel 5 times (the
    global layers) per C == 1 forward pass.
-6. ``parity``  — f32 with TF32 off, kernel route against plain route on
+6. ``mamba``   — mamba2-2.7b at full width in bf16 (random weights from
+   a seed) serving the ``serve`` phase's 16 requests on the slot plane
+   (``paged=False``): every request must finish, the SSD kernel must
+   have run 64 times per prefill dispatch whose padded length is a
+   multiple of the 256-token chunk, and no attention kernel at all.
+7. ``hybrid``  — zamba2-7b at full width in bf16 serving 8 of those
+   requests on its default, paged plane: every request must finish and
+   the paged decode kernel (head dim 112) run 13 times, once per shared
+   attention invocation, per C == 1 pass; then a P/D hand-off
+   (``hybrid_pd``, the ``pd`` checks) to an engine with pages of 32
+   whose payload carries 68 layers of SSM/conv slot rows and 13 of
+   pages.
+8. ``parity``  — f32 with TF32 off, kernel route against plain route on
    the same weights: a 2-layer full-width qwen7b's paged decode logits,
-   and a 13-layer full-width gemma3 (two local:global groups and a
-   tail) prefilling an 1100-token prompt and decoding 8 tokens; logits
-   within 2e-4.
+   a 13-layer full-width gemma3 (two local:global groups and a tail)
+   prefilling an 1100-token prompt and decoding 8 tokens (logits within
+   2e-4), and a 4-layer mamba2 and a 7-layer zamba2 (one 5 + 1 group
+   and a tail) prefilling a 1024-token prompt and decoding 8 tokens
+   (within 1e-3: the kernel and the plain scan sum the chunked SSD in
+   other orders, and the decay ``exp(cum_q - cum_k)`` takes the
+   difference of prefix sums that reach the hundreds within a chunk).
 
 Then it prints the card's ``nvidia-smi`` name and power limit, one JSON
 line with every kernel's numbers, and, last,
@@ -45,9 +66,9 @@ no CUDA card is visible or when it is run outside the repository.
 
 instead traces, with ``torch.profiler``, one prefill step and two
 decode blocks of each full-width engine (qwen7b on the paged plane,
-gemma3-4b on the slot plane), writes the gzipped chrome traces to
-``build/profile/`` and prints the device's busy time, idle share and
-kernel time by name for each window.
+gemma3-4b and mamba2-2.7b on the slot plane), writes the gzipped
+chrome traces to ``build/profile/`` and prints the device's busy time,
+idle share and kernel time by name for each window.
 """
 
 from __future__ import annotations
@@ -77,6 +98,10 @@ SLOT_ENGINE = dict(n_slots=8, max_len=2048, prefill_batch=4, decode_block=8)
 N_TABLE1_SLOT, N_LONG = 12, 4          # slot phase: Table-1 + long wikisql
 LONG_L_IN, LONG_L_OUT = (1100, 1536), 128
 PARITY_L_IN, PARITY_DECODE = 1100, 8
+MAMBA_ENGINE = dict(SLOT_ENGINE, paged=False)  # mamba2 asks for the slot plane
+N_HYBRID = 8                   # hybrid phase: the first 8 Table-1 requests
+HYBRID_PD_PAGE_SIZE = 32       # the P/D destination's pages (source: 16)
+SSM_PARITY_L_IN, SSM_PARITY_TOL = 1024, 1e-3
 
 
 def emit(obj) -> None:
@@ -121,8 +146,9 @@ def check(cond: bool, what: str) -> None:
 
 def attention_inputs(torch, dev, *, dtype, hq, hkv, poison=False,
                      zero_row=False, b=8, d=128, ps=16, mp=128, seed=1):
-    """qwen7b's decode shape: B=8 slots of up to 2048 tokens in a pool
-    of B*MP pages of 16 tokens; kv_len drawn from [1, 2048]."""
+    """qwen7b's decode shape (zamba2's with d=112): B=8 slots of up to
+    2048 tokens in a pool of B*MP pages of 16 tokens; kv_len drawn from
+    [1, 2048]."""
     rng = np.random.default_rng(seed)
     n_pages = b * mp
     kv_len = rng.integers(1, mp * ps + 1, size=b).astype(np.int32)
@@ -165,6 +191,11 @@ def kernels_phase(torch, dev):
         ("gqa40_8_bf16", dict(dtype=torch.bfloat16, hq=40, hkv=8), 2e-2),
         ("gqa40_8_f32_kvlen0", dict(dtype=torch.float32, hq=40, hkv=8,
                                     zero_row=True), 2e-5),
+        ("zamba2_d112_bf16", dict(dtype=torch.bfloat16, hq=32, hkv=32,
+                                  d=112), 2e-2),
+        ("zamba2_d112_f32_poisoned", dict(dtype=torch.float32, hq=32,
+                                          hkv=32, d=112, poison=True,
+                                          zero_row=True), 2e-5),
     ):
         args = attention_inputs(torch, dev, **kw)
         got = decode_attention.paged_decode_attention(*args)
@@ -174,39 +205,44 @@ def kernels_phase(torch, dev):
         if kw.get("zero_row"):
             check(bool((got[0] == 0).all()), f"{name}: kv_len 0 row != 0")
 
-    # timing at the main path's decode shape and dtype
-    q, k, v, table, kv_len = attention_inputs(
-        torch, dev, dtype=torch.bfloat16, hq=32, hkv=32)
-    b, hq, d = q.shape
-    hkv, ps = k.shape[1], k.shape[2]
-    lens = kv_len.cpu().numpy().astype(np.int64)
-    itemsize = q.element_size()
-    att_bytes = (int(lens.sum()) * hkv * d * 2 * itemsize
-                 + 2 * q.numel() * itemsize + table.numel() * 4 + b * 4)
-    att_flops = 4 * int(lens.sum()) * hq * d
-    kc = ref.paged_gather(k, table)       # the library call's input
-    vc = ref.paged_gather(v, table)
-    mask = (torch.arange(kc.shape[2], device=dev)[None, :]
-            < kv_len[:, None].long())[:, None, None, :]
-    att = {
-        **timings(
-            torch,
-            lambda: decode_attention.paged_decode_attention(
-                q, k, v, table, kv_len),
-            lambda: ref.paged_decode_attention_ref(q, k, v, table, kv_len),
-            lambda: F.scaled_dot_product_attention(
-                q[:, :, None, :], kc, vc, attn_mask=mask), 50),
-        **bound_row(att_bytes, att_flops, F32_FLOPS_PER_S),
-        "max_abs_err": cases["mha_bf16"]["max_abs_err"],
-        "shape": {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "ps": ps,
-                  "MP": table.shape[1], "sum_kv_len": int(lens.sum()),
-                  "dtype": "bfloat16"},
-    }
-    del q, k, v, kc, vc, mask
+    def paged_timing(d):
+        """Timing at the main path's decode shape and dtype."""
+        q, k, v, table, kv_len = attention_inputs(
+            torch, dev, dtype=torch.bfloat16, hq=32, hkv=32, d=d)
+        b, hq, _ = q.shape
+        hkv, ps = k.shape[1], k.shape[2]
+        lens = kv_len.cpu().numpy().astype(np.int64)
+        itemsize = q.element_size()
+        att_bytes = (int(lens.sum()) * hkv * d * 2 * itemsize
+                     + 2 * q.numel() * itemsize + table.numel() * 4 + b * 4)
+        att_flops = 4 * int(lens.sum()) * hq * d
+        kc = ref.paged_gather(k, table)       # the library call's input
+        vc = ref.paged_gather(v, table)
+        mask = (torch.arange(kc.shape[2], device=dev)[None, :]
+                < kv_len[:, None].long())[:, None, None, :]
+        return {
+            **timings(
+                torch,
+                lambda: decode_attention.paged_decode_attention(
+                    q, k, v, table, kv_len),
+                lambda: ref.paged_decode_attention_ref(q, k, v, table,
+                                                       kv_len),
+                lambda: F.scaled_dot_product_attention(
+                    q[:, :, None, :], kc, vc, attn_mask=mask), 50),
+            **bound_row(att_bytes, att_flops, BF16_FLOPS_PER_S),
+            "shape": {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "ps": ps,
+                      "MP": table.shape[1], "sum_kv_len": int(lens.sum()),
+                      "dtype": "bfloat16"},
+        }
+
+    att = {**paged_timing(128),
+           "max_abs_err": cases["mha_bf16"]["max_abs_err"]}
+    cases["zamba2_d112_bf16"].update(paged_timing(112))
+    torch.cuda.empty_cache()
 
     # page gather: exactness with -1 ids, then time at the pd export shape
     g = torch.Generator(device=dev).manual_seed(2)
-    n_l, n_pages, h = 32, 1024, 32
+    n_l, n_pages, h, ps, d = 32, 1024, 32, 16, 128
     pages = torch.randn(n_l, n_pages, h, ps, d, generator=g, device=dev,
                         dtype=torch.bfloat16)
     ids = torch.tensor([5, -1, n_pages - 1, 0, -1, 17], dtype=torch.int32,
@@ -240,11 +276,14 @@ def kernels_phase(torch, dev):
     torch.cuda.empty_cache()
     flash = flash_kernel_rows(torch, dev)
     dec = decode_kernel_rows(torch, dev)
+    ssd = ssd_kernel_rows(torch, dev)
+    norm = rmsnorm_kernel_rows(torch, dev)
     emit({"phase": "kernels", "paged_decode_attention": {**att,
           "cases": cases}, "page_gather": gat, "flash_attention": flash,
-          "decode_attention": dec})
+          "decode_attention": dec, "ssd": ssd, "rmsnorm": norm})
     return {"paged_decode_attention": att, "page_gather": gat,
-            "flash_attention": flash, "decode_attention": dec}
+            "flash_attention": flash, "decode_attention": dec, "ssd": ssd,
+            "rmsnorm": norm}
 
 
 def compare(torch, got, want, tol, name):
@@ -263,14 +302,16 @@ def compare(torch, got, want, tol, name):
             "want_std": float(want.float().std())}
 
 
-def timings(torch, kernel, plain, library, iters: int) -> dict:
+def timings(torch, kernel, plain, library, iters: int,
+            plain_iters: int = 5) -> dict:
     """Device times of a kernel, its plain version and the library call
-    that computes the same function, and the kernel's CUDA-event time
-    over back-to-back calls (``event_ms``), which also holds the host's
-    launch gaps."""
+    that computes the same function (None where there is none), and the
+    kernel's CUDA-event time over back-to-back calls (``event_ms``),
+    which also holds the host's launch gaps."""
     return {"ms": device_ms(torch, kernel),
-            "plain_ms": device_ms(torch, plain),
-            "library_ms": device_ms(torch, library),
+            "plain_ms": device_ms(torch, plain, plain_iters),
+            "library_ms": None if library is None
+            else device_ms(torch, library),
             "event_ms": cuda_ms(torch, kernel, iters)}
 
 
@@ -321,6 +362,9 @@ def flash_kernel_rows(torch, dev):
         ("qwen7b_bf16", (4, 32, 32, 2048, 128), True, 0, bf16, 2e-2),
         ("ragged40_f32", (2, 8, 4, 40, 256), True, 0, f32, 2e-5),
         ("bidirectional_f32", (2, 8, 4, 300, 256), False, 0, f32, 2e-5),
+        ("zamba2_d112_bf16", (4, 32, 32, 2048, 112), True, 0, bf16, 2e-2),
+        ("zamba2_d112_ragged_f32", (1, 32, 32, 1100, 112), True, 0, f32,
+         2e-5),
     ):
         g = torch.Generator(device=dev).manual_seed(s + d + window)
         q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
@@ -331,7 +375,8 @@ def flash_kernel_rows(torch, dev):
         want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         cases[name] = compare(torch, got, want, tol, f"flash {name}")
         del got, want
-        if name not in ("gemma3_global_bf16", "gemma3_local_bf16"):
+        if name not in ("gemma3_global_bf16", "gemma3_local_bf16",
+                        "zamba2_d112_bf16"):
             continue
         pos = torch.arange(s, device=dev)
         band = pos[None, :] <= pos[:, None]
@@ -370,6 +415,8 @@ def decode_kernel_rows(torch, dev):
         ("gemma3_bf16_kvlen0", (8, 8, 4, 2048, 256), bf16, 2e-2),
         ("gemma3_f32_kvlen0", (8, 8, 4, 2048, 256), f32, 2e-5),
         ("qwen7b_mha_bf16", (8, 32, 32, 2048, 128), bf16, 2e-2),
+        ("zamba2_d112_bf16_kvlen0", (8, 32, 32, 2048, 112), bf16, 2e-2),
+        ("zamba2_d112_f32_kvlen0", (8, 32, 32, 2048, 112), f32, 2e-5),
     ):
         g = torch.Generator(device=dev).manual_seed(s + d + hq)
         q = torch.randn(b, hq, d, generator=g, device=dev).to(dt)
@@ -384,7 +431,7 @@ def decode_kernel_rows(torch, dev):
         cases[name] = compare(torch, got, want, tol, f"decode {name}")
         if "kvlen0" in name:
             check(bool((got[0] == 0).all()), f"{name}: kv_len 0 row != 0")
-        if name != "gemma3_bf16_kvlen0":
+        if name not in ("gemma3_bf16_kvlen0", "zamba2_d112_bf16_kvlen0"):
             continue
         mask = (torch.arange(s, device=dev)[None, :]
                 < kv_len[:, None].long())[:, None, None, :]
@@ -404,6 +451,121 @@ def decode_kernel_rows(torch, dev):
                    "sum_kv_len": int(lens.sum()), "dtype": "bfloat16"})
     torch.cuda.empty_cache()
     return {**cases["gemma3_bf16_kvlen0"], "cases": cases}
+
+
+def ssd_inputs(torch, dev, *, b, s, h, p, n, dtype, lens=None, seed=3):
+    """SSD operands drawn as tests/test_kernels.py draws them: x, B, C
+    normal; dt softplus of a normal (f32), 0 past ``lens``; a = -exp of
+    half a normal (f32)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, s, h, p, generator=g, device=dev).to(dtype)
+    dt = F.softplus(torch.randn(b, s, h, generator=g, device=dev))
+    if lens is not None:
+        pos = torch.arange(s, device=dev)[None, :]
+        dt = dt * (pos < torch.tensor(lens, device=dev)[:, None])[..., None]
+    a = -torch.exp(0.5 * torch.randn(h, generator=g, device=dev))
+    bm = torch.randn(b, s, n, generator=g, device=dev).to(dtype)
+    cm = torch.randn(b, s, n, generator=g, device=dev).to(dtype)
+    return x, dt.contiguous(), a, bm, cm
+
+
+def ssd_work(b, s, h, p, n, q, itemsize) -> tuple[int, int]:
+    """Bytes the SSD must move (x and B/C and dt read, y and the final
+    state written, once each) and the flops it must do: per (b, head,
+    chunk) the causal half of C B^T and of S x, reachable pairs as the
+    flash row counts them, plus C . state and the state update."""
+    n_bytes = (2 * b * s * h * p * itemsize + 2 * b * s * n * itemsize
+               + 4 * b * s * h + 4 * h + 4 * b * h * p * n)
+    per_chunk = q * (q + 1) * (n + p) + 4 * q * p * n
+    return n_bytes, b * h * (s // q) * per_chunk
+
+
+def ssd_kernel_rows(torch, dev):
+    """The SSD kernel against the sequential recurrence at mamba2's and
+    zamba2's prefill shapes (B 4, S 2048, P 64, Q 256; H 80 / N 128 and
+    H 112 / N 64), with pad rows (dt = 0 past each row's length), f32
+    (2e-3) and bf16 (2e-2); timed in bf16 at both, beside the model's
+    plain chunked scan (the route taken when the kernel's gate fails)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd as ssd_mod
+    from repro_torch.models import mamba2
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    lens = [2048, 1500, 700, 37]
+    cases = {}
+    for name, h, n, dt_, tol in (
+        ("mamba2_bf16_padded", 80, 128, bf16, 2e-2),
+        ("mamba2_f32_padded", 80, 128, f32, 2e-3),
+        ("zamba2_bf16_padded", 112, 64, bf16, 2e-2),
+        ("zamba2_f32_padded", 112, 64, f32, 2e-3),
+    ):
+        b, s, p, q = 4, 2048, 64, 256
+        x, dt, a, bm, cm = ssd_inputs(torch, dev, b=b, s=s, h=h, p=p, n=n,
+                                      dtype=dt_, lens=lens)
+        y, st = ssd_mod.ssd(x, dt, a, bm, cm, chunk=q)
+        y_ref, st_ref = ref.ssd_ref(x, dt, a, bm, cm)
+        cases[name] = compare(torch, y, y_ref, tol, f"ssd {name} y")
+        cases[name]["state"] = compare(torch, st, st_ref, tol,
+                                       f"ssd {name} state")
+        del y, st, y_ref, st_ref
+        if dt_ is f32:
+            continue
+        n_bytes, flops = ssd_work(b, s, h, p, n, q, x.element_size())
+        cases[name].update(
+            **timings(torch,
+                      lambda: ssd_mod.ssd(x, dt, a, bm, cm, chunk=q),
+                      lambda: ref.ssd_ref(x, dt, a, bm, cm), None, 10,
+                      plain_iters=1),
+            scan_ms=device_ms(torch, lambda: mamba2.ssd_scan(
+                x, dt, a, bm[:, :, None], cm[:, :, None], chunk=q), 2),
+            **bound_row(n_bytes, flops, BF16_FLOPS_PER_S),
+            shape={"B": b, "S": s, "H": h, "P": p, "N": n, "Q": q,
+                   "lens": lens, "dtype": "bfloat16"})
+        del x, dt, a, bm, cm
+        torch.cuda.empty_cache()
+    return {**cases["mamba2_bf16_padded"], "cases": cases}
+
+
+def rmsnorm_kernel_rows(torch, dev):
+    """RMSNorm against its plain version at mamba2's gated norm (8192
+    rows of d_inner 5120, a 4 x 2048 prefill) and block norm (d 2560),
+    bf16 (2e-2) and f32 (2e-5), and an odd row count at zamba2's widest
+    norm (d_inner 7168); timed in bf16 at both mamba2 shapes beside
+    ``F.rms_norm`` with the ``(1 + scale)`` weight precomputed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rmsnorm_mod
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = {}
+    for name, rows, d, dt_, tol in (
+        ("mamba2_gated_bf16", 8192, 5120, bf16, 2e-2),
+        ("mamba2_block_bf16", 8192, 2560, bf16, 2e-2),
+        ("mamba2_gated_f32", 8192, 5120, f32, 2e-5),
+        ("zamba2_gated_odd_rows_f32", 1001, 7168, f32, 2e-5),
+    ):
+        g = torch.Generator(device=dev).manual_seed(rows + d)
+        x = torch.randn(rows, d, generator=g, device=dev).to(dt_)
+        scale = 0.1 * torch.randn(d, generator=g, device=dev)
+        got = rmsnorm_mod.rmsnorm(x, scale)
+        cases[name] = compare(torch, got, ref.rmsnorm_ref(x, scale), tol,
+                              f"rmsnorm {name}")
+        if dt_ is f32:
+            continue
+        weight = (1.0 + scale).to(dt_)
+        cases[name].update(
+            **timings(torch, lambda: rmsnorm_mod.rmsnorm(x, scale),
+                      lambda: ref.rmsnorm_ref(x, scale),
+                      lambda: F.rms_norm(x, (d,), weight, 1e-5), 50),
+            **bound_row(2 * x.numel() * x.element_size() + 4 * d,
+                        4 * x.numel(), F32_FLOPS_PER_S),
+            shape={"rows": rows, "D": d, "dtype": "bfloat16",
+                   "scale": "float32"})
+    torch.cuda.empty_cache()
+    return {**cases["mamba2_gated_bf16"], "cases": cases}
 
 
 # ---------------------------------------------------------------------------
@@ -518,7 +680,14 @@ def drive(torch, engine, reqs, phase: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def pd_phase(torch, dev, model):
+def pd_phase(torch, dev, model, phase: str = "pd", dst_engine=ENGINE):
+    """One request prefilled on engine A (``ENGINE``), exported, evicted
+    and imported into engine B (``dst_engine``, whose page size may
+    differ): tokens identical to a colocated run, ``kv_bytes_of`` equal
+    to the payload's bytes, the page-gather kernel launched, the paged
+    decode kernel once per attention layer and C == 1 pass on B; the
+    payload holds every attention layer's pages and every Mamba-2
+    layer's slot rows."""
     from repro_torch.core.request import Request
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
@@ -553,10 +722,18 @@ def pd_phase(torch, dev, model):
     predicted = a.kv_bytes_of(r.rid)
     check(predicted == payload.nbytes,
           f"kv_bytes_of {predicted} != payload {payload.nbytes}")
+    layers = {}
+    for seg in payload.kv:
+        for name, t in seg.items():
+            layers[name] = t.shape[0]
+    check(layers.get("k_pages", 0) == model.n_attn
+          and layers.get("ssm", 0) == model.n_mamba,
+          f"payload layers {layers} != {model.n_attn} paged + "
+          f"{model.n_mamba} slot-row layers")
     a.evict(r.slot)
     del a
     torch.cuda.empty_cache()
-    b = InferenceEngine(model, EngineConfig(**ENGINE))
+    b = InferenceEngine(model, EngineConfig(**dst_engine))
     check(b.import_kv(payload, r), "import_kv refused the payload")
     b.run_until_done()
     torch.cuda.synchronize()
@@ -564,11 +741,14 @@ def pd_phase(torch, dev, model):
     check(r.generated == want, "P/D tokens differ from the colocated run")
     check(launches["page_gather"] > 0, "export did not launch page_gather")
     check(launches["paged_decode_attention"]
-          == model.cfg.n_layers * c1_passes(b),
+          == model.n_attn * c1_passes(b),
           "decode-attention launches do not match engine B's passes")
-    out = {"phase": "pd", "l_in": PD_L_IN, "l_out": PD_L_OUT,
+    out = {"phase": phase, "model": model.cfg.name, "l_in": PD_L_IN,
+           "l_out": PD_L_OUT, "page_size": [ENGINE["page_size"],
+                                            dst_engine["page_size"]],
            "tokens_identical": True, "payload_bytes": payload.nbytes,
-           "export_s": export_s, "launches": launches}
+           "payload_layers": layers, "export_s": export_s,
+           "launches": launches}
     emit(out)
     del b, payload
     torch.cuda.empty_cache()
@@ -641,7 +821,72 @@ def slot_phase(torch, dev, model, init_s: float):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: kernel path vs plain path, f32
+# phases 6-7: mamba2 on the slot plane, zamba2 on the paged plane
+# ---------------------------------------------------------------------------
+
+
+def mamba_phase(torch, dev, model, init_s: float):
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    cfg = model.cfg
+    engine = InferenceEngine(model, EngineConfig(**MAMBA_ENGINE))
+    check(not engine.paged, "the engine did not take the slot plane")
+    shapes = []          # (B, padded S) of each prefill dispatch
+    prefill = model.prefill
+
+    def recording_prefill(tokens, lens, **kw):
+        shapes.append(tuple(tokens.shape))
+        return prefill(tokens, lens, **kw)
+
+    model.prefill = recording_prefill
+    try:
+        out = drive(torch, engine, table1_requests(cfg.vocab_size), "mamba")
+    finally:
+        del model.prefill
+    launches = out["launches"]
+    n_ssd = sum(s % cfg.ssm.chunk_size == 0 for _, s in shapes)
+    check(n_ssd > 0, f"no prefill dispatch reached the SSD gate: {shapes}")
+    check(launches["ssd"] == cfg.n_layers * n_ssd,
+          f"ssd launches {launches['ssd']} != {cfg.n_layers} x {n_ssd} "
+          f"prefill dispatches padded to a multiple of "
+          f"{cfg.ssm.chunk_size}")
+    others = {k: n for k, n in launches.items() if k != "ssd" and n}
+    check(not others, f"the mamba phase ran other kernels: {others}")
+    out.update(engine=MAMBA_ENGINE, init_s=init_s, prefill_shapes=shapes,
+               ssd_dispatches=n_ssd)
+    emit(out)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def hybrid_phase(torch, dev, model, init_s: float):
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    engine = InferenceEngine(model, EngineConfig(**ENGINE))
+    check(engine.paged, "the engine did not take the paged plane")
+    reqs = table1_requests(model.cfg.vocab_size)[:N_HYBRID]
+    out = drive(torch, engine, reqs, "hybrid")
+    launches, passes = out["launches"], out["c1_passes"]
+    check(launches["paged_decode_attention"] == model.n_attn * passes,
+          f"decode-attention launches {launches['paged_decode_attention']}"
+          f" != {model.n_attn} shared-attention layers x {passes} C==1 "
+          f"passes")
+    # chunked prefill carries the SSM state, so the SSD takes the plain
+    # scan there, as in the JAX package
+    others = {k: n for k, n in launches.items()
+              if k != "paged_decode_attention" and n}
+    check(not others, f"the hybrid phase ran other kernels: {others}")
+    out.update(engine=ENGINE, init_s=init_s, attn_layers=model.n_attn,
+               mamba_layers=model.n_mamba)
+    emit(out)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: kernel path vs plain path, f32
 # ---------------------------------------------------------------------------
 
 
@@ -704,11 +949,14 @@ def parity_phase(torch, dev, cfg):
     return out
 
 
-def slot_parity_phase(torch, dev, cfg, n_layers: int = 13):
-    """gemma3 at full width in f32, cut to 2 local:global groups and a
-    1-layer local tail (the JAX package's group layout): prefill of one
-    prompt longer than the window, then decode steps, once through the
-    kernels and once through the plain routes, on the same weights."""
+def slot_parity_phase(torch, dev, cfg, n_layers: int, l_in: int,
+                      tol: float, seed: int):
+    """A full-width model in f32, cut to ``n_layers`` (gemma3: two
+    local:global groups and a 1-layer local tail, the JAX package's
+    group layout; mamba2: 4 Mamba-2 layers; zamba2: 5 Mamba-2 layers, the
+    shared attention block and a Mamba-2 tail): prefill of one
+    ``l_in``-token prompt, then decode steps, once through the kernels
+    and once through the plain routes, on the same weights."""
     from repro_torch.kernels import ops
     from repro_torch.models.build import Model
 
@@ -716,12 +964,16 @@ def slot_parity_phase(torch, dev, cfg, n_layers: int = 13):
     torch.backends.cudnn.allow_tf32 = False
     small = dataclasses.replace(cfg, n_layers=n_layers)
     model = Model(small, dtype=torch.float32, device=dev)
-    model.init(torch.Generator(device=dev).manual_seed(SEED + 6))
-    n_global = sum(w == 0 for w in model.windows)
-    prompt = np.random.default_rng(SEED + 7).integers(
-        0, small.vocab_size, size=PARITY_L_IN).astype(np.int32)
+    model.init(torch.Generator(device=dev).manual_seed(seed))
+    # decode attention runs on the attention layers without a window
+    n_global = sum(k != "mamba" and w == 0
+                   for k, w in zip(model.kinds, model.windows))
+    n_ssd = (model.n_mamba if small.ssm is not None
+             and l_in % small.ssm.chunk_size == 0 else 0)
+    prompt = np.random.default_rng(seed + 1).integers(
+        0, small.vocab_size, size=l_in).astype(np.int32)
     tokens = torch.as_tensor(prompt[None], device=dev)
-    lens = torch.tensor([PARITY_L_IN], dtype=torch.int32, device=dev)
+    lens = torch.tensor([l_in], dtype=torch.int32, device=dev)
     runs = {}
     ops.reset_launch_counts()
     for use_kernels in (True, False):
@@ -732,7 +984,7 @@ def slot_parity_phase(torch, dev, cfg, n_layers: int = 13):
     errs = [float((runs[True][0] - runs[False][0]).abs().max())]
     last = runs[True][0].argmax(-1).to(torch.int32)
     for i in range(PARITY_DECODE):
-        pos = torch.tensor([PARITY_L_IN + i], dtype=torch.int32, device=dev)
+        pos = torch.tensor([l_in + i], dtype=torch.int32, device=dev)
         for use_kernels in (True, False):
             model.use_kernels = use_kernels
             runs[use_kernels] = model.decode_step(runs[use_kernels][1], last,
@@ -741,17 +993,19 @@ def slot_parity_phase(torch, dev, cfg, n_layers: int = 13):
         errs.append(float((runs[True][0] - runs[False][0]).abs().max()))
         last = runs[True][0].argmax(-1).to(torch.int32)
     launches = ops.launch_counts()
-    check(launches["flash_attention"] == n_layers,
+    check(launches["flash_attention"] == model.n_attn,
           f"parity prefill launched flash {launches['flash_attention']}x")
     check(launches["decode_attention"] == n_global * PARITY_DECODE,
           f"parity decode launched {launches['decode_attention']}x")
+    check(launches["ssd"] == n_ssd,
+          f"parity prefill launched ssd {launches['ssd']}x, not {n_ssd}")
     err = max(errs)
-    check(err <= 2e-4, f"gemma3 kernel vs plain logits differ by {err}")
+    check(err <= tol, f"{small.name} kernel vs plain logits differ by {err}")
     out = {"phase": "parity", "model": small.name, "n_layers": n_layers,
-           "d_model": small.d_model, "dtype": "float32",
-           "prompt_len": PARITY_L_IN, "window": small.window,
+           "kinds": sorted(set(model.kinds)), "d_model": small.d_model,
+           "dtype": "float32", "prompt_len": l_in, "window": small.window,
            "decode_steps": PARITY_DECODE, "prefill_abs_logit_err": errs[0],
-           "max_abs_logit_err": err, "tol": 2e-4,
+           "max_abs_logit_err": err, "tol": tol, "launches": launches,
            "logit_absmax": float(runs[True][0].abs().max())}
     emit(out)
     del model, runs
@@ -873,7 +1127,8 @@ def main() -> int:
 
     if "--profile" in sys.argv[1:]:
         for name, engine_kw, l_in in (("qwen7b", ENGINE, 512),
-                                      ("gemma3-4b", SLOT_ENGINE, 1100)):
+                                      ("gemma3-4b", SLOT_ENGINE, 1100),
+                                      ("mamba2-2.7b", MAMBA_ENGINE, 1100)):
             model, _ = load(name)
             profile_phase(torch, dev, model, engine_kw, l_in,
                           ROOT / "build" / "profile")
@@ -892,29 +1147,55 @@ def main() -> int:
     slot = slot_phase(torch, dev, model, init_s)
     del model
     torch.cuda.empty_cache()
+    model, init_s = load("mamba2-2.7b")
+    mamba = mamba_phase(torch, dev, model, init_s)
+    del model
+    torch.cuda.empty_cache()
+    model, init_s = load("zamba2-7b")
+    hybrid = hybrid_phase(torch, dev, model, init_s)
+    hybrid_pd = pd_phase(torch, dev, model, "hybrid_pd",
+                         dict(ENGINE, page_size=HYBRID_PD_PAGE_SIZE))
+    del model
+    torch.cuda.empty_cache()
     parity_phase(torch, dev, get_config("qwen7b"))
-    slot_parity_phase(torch, dev, get_config("gemma3-4b"))
+    slot_parity_phase(torch, dev, get_config("gemma3-4b"), 13, PARITY_L_IN,
+                      2e-4, SEED + 6)
+    slot_parity_phase(torch, dev, get_config("mamba2-2.7b"), 4,
+                      SSM_PARITY_L_IN, SSM_PARITY_TOL, SEED + 8)
+    slot_parity_phase(torch, dev, get_config("zamba2-7b"), 7,
+                      SSM_PARITY_L_IN, SSM_PARITY_TOL, SEED + 10)
 
+    # launches: the main paths' runs, each with the counts set to 0 just
+    # before it (the kernels phase's comparisons are not counted)
+    main_paths = {"serve": serve, "pd": pd, "slot": slot, "mamba": mamba,
+                  "hybrid": hybrid, "hybrid_pd": hybrid_pd}
     csrc = "src/repro_torch/kernels/csrc"
     kernels = []
-    for name, replaces, launches in (
-        ("paged_decode_attention", "src/repro/kernels/decode_attention.py:167",
-         serve["launches"]["paged_decode_attention"]),
-        ("page_gather", "src/repro/kernels/page_gather.py:35",
-         pd["launches"]["page_gather"]),
-        ("flash_attention", "src/repro/kernels/flash_attention.py:95",
-         slot["launches"]["flash_attention"]),
-        ("decode_attention", "src/repro/kernels/decode_attention.py:69",
-         slot["launches"]["decode_attention"]),
+    for name, replaces in (
+        ("paged_decode_attention", "src/repro/kernels/decode_attention.py:167"),
+        ("page_gather", "src/repro/kernels/page_gather.py:35"),
+        ("flash_attention", "src/repro/kernels/flash_attention.py:95"),
+        ("decode_attention", "src/repro/kernels/decode_attention.py:69"),
+        ("ssd", "src/repro/kernels/ssd.py:86"),
+        ("rmsnorm", "src/repro/kernels/rmsnorm.py:32"),
     ):
         row = rows[name]
+        by_phase = {ph: out["launches"][name] for ph, out in main_paths.items()
+                    if out["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": f"{csrc}/{name}.cu",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, "launches": sum(by_phase.values()),
+            "launches_by_phase": by_phase,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    # rmsnorm has no call site in the model (nor in the JAX package's):
+    # its 0 launches on the main paths are expected; every other kernel
+    # must have run there
+    idle = [k["name"] for k in kernels
+            if k["launches"] == 0 and k["name"] != "rmsnorm"]
+    check(not idle, f"kernels the main paths never launched: {idle}")
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

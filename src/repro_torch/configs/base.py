@@ -12,9 +12,10 @@ hyper-parameters plus the *layer pattern* the model builder reads:
 - ``encoder``      — bidirectional (non-causal) attention block
 
 A model is a sequence of *segments* ``(kind, count)``.  The port's
-builder runs the ``dense``, ``local`` and ``global`` kinds; the others
-raise until their ROADMAP items land, but the config keeps every field so those slices need no
-schema change.
+``models/build.py`` runs the ``dense``, ``local``, ``global``,
+``mamba`` and ``shared_attn`` kinds; the others raise until their
+ROADMAP items land, but the config keeps every field so those slices
+need no schema change.
 """
 
 from __future__ import annotations
@@ -120,7 +121,9 @@ class ModelConfig:
         return (("dense", self.n_layers),)
 
     def param_count(self) -> int:
-        """Exact parameter count of a dense/MoE attention model."""
+        """Exact parameter count, from shapes: attention/FFN layers, or
+        Mamba-2 layers (SSM), or Mamba-2 layers plus one weight-shared
+        attention block (hybrid)."""
         d, hd = self.d_model, self.resolved_head_dim
         q_dim = self.n_heads * hd
         kv_dim = self.n_kv_heads * hd
@@ -132,10 +135,32 @@ class ModelConfig:
             ffn = d * m.num_experts + m.num_experts * 3 * d * m.expert_d_ff
         else:
             ffn = 3 * d * self.d_ff
-        body = self.n_layers * (attn + ffn + 2 * d)
+        per_attn_layer = attn + ffn + 2 * d
+        if self.family == "ssm":
+            body = self.n_layers * (self._mamba_params() + d)
+        elif self.family == "hybrid":
+            n_mamba = sum(c for k, c in self.layer_pattern() if k == "mamba")
+            body = n_mamba * (self._mamba_params() + d) + per_attn_layer
+        else:
+            body = self.n_layers * per_attn_layer
         embed = self.vocab_size * d
         head = 0 if self.tie_embeddings else self.vocab_size * d
         return body + embed + head + d
+
+    def _mamba_params(self) -> int:
+        s, d = self.ssm, self.d_model
+        di, n, h = s.d_inner(d), s.d_state, s.n_heads(d)
+        conv_ch = di + 2 * s.n_groups * n
+        return (
+            d * di  # z (gate) proj
+            + d * di  # x proj
+            + 2 * d * s.n_groups * n  # B, C proj
+            + d * h  # dt proj
+            + conv_ch * s.conv_width  # depthwise conv
+            + 3 * h  # A_log, D, dt_bias
+            + di  # gated rmsnorm
+            + di * d  # out proj
+        )
 
 
 def reduce_config(cfg: ModelConfig) -> ModelConfig:

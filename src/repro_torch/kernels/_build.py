@@ -23,6 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 
@@ -54,8 +55,16 @@ SIGNATURES = {
         "decode_attention_launch",
         [_VOID_P] * 6 + [_INT] * 7 + [_VOID_P],
     ),
+    "ssd": (
+        "ssd_launch",
+        [_VOID_P] * 7 + [_INT] * 7 + [_VOID_P],
+    ),
+    "rmsnorm": (
+        "rmsnorm_launch",
+        [_VOID_P] * 3 + [_INT] * 3 + [ctypes.c_float, _VOID_P],
+    ),
 }
-# dtype code the attention entry points take
+# dtype code the entry points take
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
@@ -141,12 +150,15 @@ def library(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check_operands(floats: dict, ints: dict) -> None:
+def check_operands(floats: dict, ints: dict,
+                   f32s: Optional[dict] = None) -> None:
     """Raise unless every tensor is a contiguous CUDA tensor on one
     device, the float operands share one dtype of ``DTYPE_CODE`` and are
-    16-byte aligned (the kernels read 16-byte words), and the integer
-    operands are int32 (torch's default integer is int64)."""
-    tensors = {**floats, **ints}
+    16-byte aligned (the kernels read 16-byte words), the integer
+    operands are int32 (torch's default integer is int64) and the
+    ``f32s`` operands are float32 whatever the others' dtype."""
+    f32s = f32s or {}
+    tensors = {**floats, **ints, **f32s}
     first = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.device.type != "cuda":
@@ -162,7 +174,10 @@ def check_operands(floats: dict, ints: dict) -> None:
     for name, t in ints.items():
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    for name, t in floats.items():
+    for name, t in f32s.items():
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    for name, t in {**floats, **f32s}.items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
 

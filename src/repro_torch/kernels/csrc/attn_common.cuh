@@ -1,7 +1,7 @@
-// Device code shared by the port's attention kernels (sm_90a): 16-byte
-// loads of f32 or bf16 into f32 registers, stores back, and the split-KV
-// decode that paged_decode_attention.cu and decode_attention.cu both
-// run.  The two decode kernels differ only in how a token index becomes
+// Device code shared by the port's kernels (sm_90a): 16-byte loads of
+// f32 or bf16 into f32 registers and stores back (every kernel), and the
+// split-KV decode that paged_decode_attention.cu and decode_attention.cu
+// both run.  The two decode kernels differ only in how a token index becomes
 // an address in their cache, which they pass in as a functor.
 //
 // Split-KV decode, one query token per (b, query head): the Pallas grid
@@ -10,9 +10,10 @@
 // has few (b, head) pairs, too few blocks to keep the memory system
 // busy, so the sequence is cut into n_split chunks and one block owns
 // one (chunk, head, b).  Inside a block, groups of lanes each own one
-// token at a time (a group is D / EPT lanes, each lane holding EPT
-// elements read as 16-byte vectors, so neighbouring groups read
-// neighbouring tokens and the loads coalesce), keep their own (m, l,
+// token at a time (a group is D / EPT lanes rounded up to a power of
+// two, each lane holding EPT elements read as 16-byte vectors, so
+// neighbouring groups read neighbouring tokens and the loads coalesce;
+// at D = 112 the last lanes of a group hold nothing), keep their own (m, l,
 // acc) state, and issue the K and V loads of kDecodeUnroll tokens before
 // any arithmetic on them.  The groups merge in shared memory and the
 // block writes its chunk's unnormalized (acc, m, l) to an f32 workspace;
@@ -72,6 +73,13 @@ __device__ __forceinline__ void store_elem(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// The least power of two >= v.
+__host__ __device__ constexpr int pow2_at_least(int v) {
+  int p = 1;
+  while (p < v) p <<= 1;
+  return p;
+}
+
 constexpr int kDecodeWarps = 4;
 constexpr int kDecodeThreads = kDecodeWarps * 32;
 constexpr int kDecodeUnroll = 4;
@@ -95,12 +103,13 @@ __device__ __forceinline__ void decode_chunk(
   // elements per lane: one 16-byte word, or more when D > 32 words
   constexpr int kPerWord = 16 / sizeof(T);
   constexpr int kEPT = (D / 32 > kPerWord) ? D / 32 : kPerWord;
-  constexpr int kLanes = D / kEPT;  // lanes per token group (power of 2)
+  constexpr int kUsed = D / kEPT;                 // lanes holding elements
+  constexpr int kLanes = pow2_at_least(kUsed);    // lanes per token group
   constexpr int kGroupsPerWarp = 32 / kLanes;
   constexpr int kGroups = kDecodeWarps * kGroupsPerWarp;
   constexpr int kUnroll = kDecodeUnroll;
-  static_assert(D % kEPT == 0 && kLanes <= 32 && 32 % kLanes == 0,
-                "head_dim must be a power of two the lanes can split");
+  static_assert(D % kEPT == 0 && kEPT % kPerWord == 0 && kLanes <= 32,
+                "head_dim must split into whole 16-byte words per lane");
 
   __shared__ float s_acc[kGroups][D];
   __shared__ float s_m[kGroups];
@@ -116,9 +125,16 @@ __device__ __forceinline__ void decode_chunk(
   const int lane = threadIdx.x & 31;
   const int sub = lane % kLanes;
   const int gid = (threadIdx.x >> 5) * kGroupsPerWarp + lane / kLanes;
+  // a lane past the head's last word holds zeros and adds 0 to the dots
+  const bool active = sub < kUsed;
 
   float qv[kEPT];
-  load_vec<T, kEPT>(q + ((size_t)b * hq + hi) * D + sub * kEPT, qv);
+  if (active) {
+    load_vec<T, kEPT>(q + ((size_t)b * hq + hi) * D + sub * kEPT, qv);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kEPT; ++e) qv[e] = 0.f;
+  }
 #pragma unroll
   for (int e = 0; e < kEPT; ++e) qv[e] *= scale;
 
@@ -138,7 +154,7 @@ __device__ __forceinline__ void decode_chunk(
     for (int u = 0; u < kUnroll; ++u) {
       const int t = base + u * kGroups + gid;
       valid[u] = t < t1;
-      if (valid[u]) {
+      if (valid[u] && active) {
         const size_t off = addr(t) + sub * kEPT;
         load_vec<T, kEPT>(k + off, kf[u]);
         load_vec<T, kEPT>(v + off, vf[u]);
@@ -179,8 +195,10 @@ __device__ __forceinline__ void decode_chunk(
     }
   }
 
+  if (active) {
 #pragma unroll
-  for (int e = 0; e < kEPT; ++e) s_acc[gid][sub * kEPT + e] = acc[e];
+    for (int e = 0; e < kEPT; ++e) s_acc[gid][sub * kEPT + e] = acc[e];
+  }
   if (sub == 0) {
     s_m[gid] = m;
     s_l[gid] = l;

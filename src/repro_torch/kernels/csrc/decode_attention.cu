@@ -79,6 +79,7 @@ int launch_dim(int head_dim, const void* q, const void* k, const void* v,
   switch (head_dim) {
     DA_CASE(16)
     DA_CASE(64)
+    DA_CASE(112)
     DA_CASE(128)
     DA_CASE(256)
     default:

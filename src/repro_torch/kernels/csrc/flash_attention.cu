@@ -283,6 +283,7 @@ int launch_dim(int head_dim, const void* q, const void* k, const void* v,
     FA_CASE(16)
     FA_CASE(32)
     FA_CASE(64)
+    FA_CASE(112)
     FA_CASE(128)
     FA_CASE(256)
     default:

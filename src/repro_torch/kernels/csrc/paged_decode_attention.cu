@@ -100,6 +100,7 @@ int launch_dim(int head_dim, const void* q, const void* k_pages,
     PDA_CASE(8)
     PDA_CASE(16)
     PDA_CASE(64)
+    PDA_CASE(112)
     PDA_CASE(128)
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -23,8 +23,8 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 64, 128, 256)      # the DA_CASEs of decode_attention.cu
-PAGED_HEAD_DIMS = (8, 16, 64, 128)  # the PDA_CASEs of paged_decode_attention.cu
+HEAD_DIMS = (16, 64, 112, 128, 256)  # the DA_CASEs of decode_attention.cu
+PAGED_HEAD_DIMS = (8, 16, 64, 112, 128)  # the PDA_CASEs of paged_decode_attention.cu
 SPLIT_TOKENS = 256  # cache positions per block of the split-KV grid
 
 

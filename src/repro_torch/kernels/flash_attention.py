@@ -16,7 +16,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 128, 256)  # the FA_CASEs of flash_attention.cu
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)  # the FA_CASEs of flash_attention.cu
 
 
 def flash_attention(q, k, v, *, causal: bool = True,

@@ -15,10 +15,13 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import page_gather as _gather
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rmsnorm
+from repro_torch.kernels import ssd as _ssd
 from repro_torch.kernels._build import launch_counts, reset_launch_counts
 
 __all__ = ["launch_counts", "reset_launch_counts", "flash_attention",
-           "decode_attention", "paged_decode_attention", "page_gather"]
+           "decode_attention", "paged_decode_attention", "page_gather", "ssd",
+           "rmsnorm"]
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
@@ -55,3 +58,20 @@ def page_gather(pages, page_ids):
     if pages.device.type == "cpu":
         return ref.page_gather_ref(pages, page_ids)
     return _gather.page_gather(pages, page_ids)
+
+
+def ssd(x, dt, a, b_mat, c_mat, *, chunk: int = 256):
+    """Chunked Mamba-2 SSD of one B/C group: (y, final state); see
+    ``ref.ssd_ref``, the sequential recurrence the CPU runs (as the JAX
+    package's ``ops.ssd`` does on its "jnp" backend)."""
+    if x.device.type == "cpu":
+        return ref.ssd_ref(x, dt, a, b_mat, c_mat)
+    return _ssd.ssd(x, dt, a, b_mat, c_mat, chunk=chunk)
+
+
+def rmsnorm(x, scale, *, eps: float = 1e-5):
+    """RMSNorm with the ``(1 + scale)`` affine over the last axis; see
+    ``ref.rmsnorm_ref``."""
+    if x.device.type == "cpu":
+        return ref.rmsnorm_ref(x, scale, eps=eps)
+    return _rmsnorm.rmsnorm(x, scale, eps=eps)

@@ -15,6 +15,8 @@ Two deliberate differences from the JAX oracles:
   versions here follow the kernels (``repro/kernels/ref.py`` returns the
   mean of V), and they get there without ``-inf`` arithmetic, so no NaN
   can appear.
+
+``ssd_ref`` and ``rmsnorm_ref`` follow their JAX oracles exactly.
 """
 
 from __future__ import annotations
@@ -110,3 +112,39 @@ def paged_decode_attention_ref(q, k_pages, v_pages, page_table,
     k = paged_gather(k_pages, page_table)
     v = paged_gather(v_pages, page_table)
     return decode_attention_ref(q, k, v, kv_len)
+
+
+def ssd_ref(x, dt, a, b_mat, c_mat) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential SSD recurrence, the definitional oracle of the chunked
+    kernel (copy of ``repro/kernels/ref.py::ssd_ref``).
+
+    x: (B, S, H, P); dt: (B, S, H) f32; a: (H,) negative f32;
+    b_mat, c_mat: (B, S, N), one group broadcast over the heads.  Per
+    step ``state = state * exp(dt * a) + dt * x ⊗ B`` and ``y = state · C``,
+    in f32.  Returns (y (B, S, H, P) in x's dtype, final state
+    (B, H, P, N) f32)."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        dtt = dt[:, t].float()                            # (B, H)
+        da = torch.exp(dtt * a.float())
+        bt = b_mat[:, t].float()                          # (B, N)
+        state = state * da[..., None, None] + (
+            dtt[..., None, None] * bt[:, None, None, :]
+            * x[:, t].float()[..., None])
+        ys.append(torch.einsum("bhpn,bn->bhp", state, c_mat[:, t].float()))
+    y = (torch.stack(ys, dim=1) if ys
+         else x.new_zeros((bsz, 0, h, p), dtype=torch.float32))
+    return y.to(x.dtype), state
+
+
+def rmsnorm_ref(x, scale, eps: float = 1e-5) -> torch.Tensor:
+    """``x * rsqrt(mean(x**2) + eps) * (1 + scale)`` over the last axis,
+    in f32, returned in x's dtype (copy of
+    ``repro/kernels/ref.py::rmsnorm_ref``)."""
+    x32 = x.float()
+    var = x32.square().mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * (1.0 + scale.float())).to(x.dtype)

@@ -5,10 +5,15 @@
 
 - a uniform segment of ``count`` layers stacks each leaf along one lead
   dim: ``segments[i]["attn"]["wq"]`` is ``(count, d, Hq*hd)``;
-- a **group** segment (a periodic pattern, gemma3's 5 local : 1 global)
-  holds one subtree per inner kind whose leaves carry two lead dims,
-  ``(n_groups, inner_count, …)``: ``segments[0]["local"]["attn"]["wq"]``
-  is ``(5, 5, d, Hq*hd)`` at full width.
+- a **group** segment (a periodic pattern: gemma3's 5 local : 1 global,
+  zamba2's 5 mamba : 1 shared attention) holds one subtree per inner
+  kind whose leaves carry two lead dims, ``(n_groups, inner_count, …)``:
+  ``segments[0]["local"]["attn"]["wq"]`` is ``(5, 5, d, Hq*hd)`` for
+  gemma3 at full width, ``segments[0]["mamba"]["mamba"]["w_x"]``
+  ``(13, 5, d, d_inner)`` for zamba2.  A ``shared_attn`` kind has no
+  leaves: every invocation runs the one top-level ``shared`` block
+  (``ln1``, ``ln2``, ``attn``, ``ffn``), which maps to the port's
+  ``shared.…``.
 
 The port's layers are one flat list in execution order — group g, then
 its inner kinds in order, then the segments after the group — so leaf
@@ -27,7 +32,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-_BLOCK_PARTS = {"ln1": 0, "ln2": 0, "attn": 1, "ffn": 1}  # part -> depth
+# part of a block -> its depth (0: a leaf; 1: a dict of leaves)
+_BLOCK_PARTS = {"ln1": 0, "ln2": 0, "attn": 1, "ffn": 1, "ln": 0,
+                "mamba": 1}
 
 
 def build_segments(cfg: ModelConfig) -> list[tuple]:
@@ -81,29 +88,24 @@ def _layer_map(cfg: ModelConfig) -> dict[tuple, tuple]:
     return out
 
 
-def params_from_jax(tree, cfg: ModelConfig) -> dict[str, torch.Tensor]:
-    """Map every leaf of the JAX tree to the port's parameter name(s).
-
-    Top-level leaves (``embed``, ``head``, ``final_norm``) map to one
-    tensor each; a stacked layer leaf maps to one tensor per layer it
-    stacks, ``layers.{i}.…``.  Raises on a leaf with no counterpart, on
-    a stacked leaf whose lead dims do not match its segment, and on two
-    leaves that would land on one name, so each JAX leaf is used exactly
-    once.
-    """
+def _plan(tree, cfg: ModelConfig):
+    """Yield ``(port name, JAX leaf, row)`` for every tensor of the
+    port's ``state_dict``: ``row`` is None for a leaf taken whole (the
+    top-level ``embed``, ``head``, ``final_norm`` and the ``shared``
+    block), else ``(n_lead, i)``: entry ``i`` of the leaf's ``n_lead``
+    stacked lead dims, flattened in row-major order.  Raises on a leaf
+    with no counterpart and on a stacked leaf whose lead dims do not
+    match its segment.  Reads only ``leaf.shape``."""
     layer_map = _layer_map(cfg)
-    out: dict[str, torch.Tensor] = {}
-
-    def put(name, arr):
-        if name in out:
-            raise ValueError(f"two JAX leaves map to {name}")
-        out[name] = torch.tensor(np.asarray(arr))
-
     for path, leaf in _leaves(tree):
-        arr = np.asarray(leaf)
         where = "/".join(map(str, path))
         if path in (("embed",), ("head",), ("final_norm",)):
-            put(path[0], arr)
+            yield path[0], leaf, None
+            continue
+        if (path[:1] == ("shared",) and len(path) >= 2
+                and path[1] in _BLOCK_PARTS
+                and len(path) == 2 + _BLOCK_PARTS[path[1]]):
+            yield ".".join(map(str, path)), leaf, None
             continue
         key = part = None
         if path[:1] == ("segments",) and len(path) >= 3:
@@ -119,12 +121,45 @@ def params_from_jax(tree, cfg: ModelConfig) -> dict[str, torch.Tensor]:
                 f"JAX leaf {where} has no counterpart in the port's Model"
             )
         idx, lead = layer_map[key]
-        if arr.shape[:len(lead)] != lead:
+        if tuple(leaf.shape[:len(lead)]) != lead:
             raise ValueError(
-                f"{where}: lead dims {arr.shape[:len(lead)]} != {lead}"
+                f"{where}: lead dims {tuple(leaf.shape[:len(lead)])} != {lead}"
             )
-        flat = arr.reshape((-1,) + arr.shape[len(lead):])
         name = ".".join(part)
         for row, i in enumerate(idx):
-            put(f"layers.{i}.{name}", flat[row])
+            yield f"layers.{i}.{name}", leaf, (len(lead), row)
+
+
+def param_shapes_from_jax(tree, cfg: ModelConfig) -> dict[str, tuple]:
+    """The name and shape of every tensor :func:`params_from_jax` would
+    return, from any tree whose leaves have a ``shape`` (such as
+    ``jax.eval_shape(model.init, key)``): checks a full-width layout
+    without materializing its weights."""
+    out: dict[str, tuple] = {}
+    for name, leaf, row in _plan(tree, cfg):
+        if name in out:
+            raise ValueError(f"two JAX leaves map to {name}")
+        out[name] = tuple(leaf.shape[row[0]:] if row else leaf.shape)
+    return out
+
+
+def params_from_jax(tree, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """Map every leaf of the JAX tree to the port's parameter name(s).
+
+    Top-level leaves (``embed``, ``head``, ``final_norm``) and the leaves
+    of the ``shared`` block map to one tensor each; a stacked layer leaf
+    maps to one tensor per layer it stacks, ``layers.{i}.…``.  Raises on
+    a leaf with no counterpart, on a stacked leaf whose lead dims do not
+    match its segment, and on two leaves that would land on one name,
+    so each JAX leaf is used exactly once.
+    """
+    out: dict[str, torch.Tensor] = {}
+    for name, leaf, row in _plan(tree, cfg):
+        if name in out:
+            raise ValueError(f"two JAX leaves map to {name}")
+        arr = np.asarray(leaf)
+        if row is not None:
+            n_lead, i = row
+            arr = arr.reshape((-1,) + arr.shape[n_lead:])[i]
+        out[name] = torch.tensor(arr)
     return out

@@ -5,26 +5,31 @@ planes, picked as there: ``paged=None`` takes the paged plane when the
 model supports it (``Model.supports_chunked``) and the slot plane
 otherwise.
 
-**Paged / chunked plane** (qwen7b): attention K/V lives in a shared
-pool of fixed-size pages
+**Paged / chunked plane** (qwen7b, mamba2-2.7b, zamba2-7b): attention
+K/V lives in a shared pool of fixed-size pages
 (:class:`~repro_torch.serving.kv_manager.PagedKVManager`); prompts
 prefill in chunks sized by the Eq. 5 token budget; the engine alternates
 one prefill chunk with one decode step whenever both have work; decode
 runs as fused K-iteration blocks (``Model.decode_block``) with the K
 picked as in the JAX engine; an oversubscribed pool recompute-preempts
-the youngest request.  Measured step times feed the
+the youngest request.  Mamba-2 conv and SSM state is O(1) per sequence
+and stays in slot rows beside the pool (a chunk of length 0 leaves a
+row's state as it was); ``clear_rows`` zeroes a row at release and
+preemption.  Measured step times feed the
 :class:`FittedLatencyModel` profiler exactly as the paper's Appendix-A
 profiler does, and they are taken around the dispatch with
 ``torch.cuda.synchronize()`` on the card (``block_until_ready`` in JAX).
 
 P/D disaggregation: with ``park_on_prefill`` set, a request whose
 prompt completes parks with its pages resident until ``export_kv``
-materializes its cache (through the page-gather kernel) and
-``import_kv`` installs it on another engine, which continues
-token-identically.
+materializes its cache (pages through the page-gather kernel, slot rows
+as copies) and ``import_kv`` installs it on another engine, whose page
+size may differ, which continues token-identically.
 
 **Slot plane** (gemma3-4b, whose sliding-window layers the paged plane
-does not run): each request owns one row of contiguous per-layer caches
+does not run; any chunk-capable model with ``paged=False``, where a
+Mamba-2 prefill whose padded length is a multiple of the SSM chunk runs
+the SSD kernel): each request owns one row of contiguous per-layer caches
 (``Model.init_cache``).  Queued prompts are admitted under the Eq. 5
 token budget at the engine boundary, prefilled whole in one padded
 batch (``Model.prefill``, prompt length padded to a power of two) and
@@ -35,10 +40,13 @@ copied into their rows (``insert_rows``); decode runs per token
 raise on this plane, ``kv_bytes_of`` returns None, and the prefix cache
 and speculative decoding are refused with ``ValueError``.
 
-Not ported yet, and refused with ``NotImplementedError`` rather than
-run some other way: the prefix cache and speculative decoding on the
-paged plane.  ``fn_cache`` and ``warm_decode_blocks`` have no
-counterpart — PyTorch runs eagerly, with nothing to compile.
+On the paged plane a model with Mamba-2 layers refuses the prefix cache
+and speculative decoding with the JAX engine's ``ValueError``: its
+slot-resident state cannot be shared by page or truncated back.  Not
+ported yet, and refused with ``NotImplementedError`` rather than run
+some other way: both features for pure-attention models on the paged
+plane.  ``fn_cache`` and ``warm_decode_blocks`` have no counterpart —
+PyTorch runs eagerly, with nothing to compile.
 """
 
 from __future__ import annotations
@@ -104,6 +112,18 @@ class InferenceEngine:
             raise ValueError(
                 "spec_decode requires the paged plane: rollback is "
                 "page-table truncation"
+            )
+        if cfg.prefix_cache and not model.supports_prefix_cache:
+            raise ValueError(
+                "prefix caching needs pure-attention paged caches: "
+                "SSM/conv state is slot-resident, so a shared page "
+                "cannot reproduce it; disable prefix_cache for this model"
+            )
+        if cfg.spec_decode and not model.supports_spec_decode:
+            raise ValueError(
+                "spec_decode needs pure-attention paged caches: "
+                "slot-resident SSM/conv state has no per-position "
+                "record to truncate rejected tokens back to"
             )
         if cfg.prefix_cache:
             raise NotImplementedError(
@@ -413,7 +433,7 @@ class InferenceEngine:
             )
         n = int(self.pos[s])
         ids = self._tensor(np.asarray(self.kv.pages_of(s), np.int32))
-        payload_kv = gather_slot_kv(self.caches, self.axes, ids, n)
+        payload_kv = gather_slot_kv(self.caches, self.axes, s, ids, n)
         r = self.parked.get(s) or self.active.get(s)
         return KVPayload(rid=rid, n_tokens=n,
                          last_token=int(self.last_token[s]),
@@ -433,7 +453,7 @@ class InferenceEngine:
             self.slots.free(s)
             return False
         ids = self._tensor(np.asarray(self.kv.pages_of(s), np.int32))
-        self.caches = scatter_slot_kv(self.caches, self.axes, ids,
+        self.caches = scatter_slot_kv(self.caches, self.axes, s, ids,
                                       payload.kv)
         if req.generated is None:
             req.generated = []
@@ -457,11 +477,15 @@ class InferenceEngine:
             return None
         n = int(self.pos[s])
         total = 0.0
-        for seg in self.caches:
-            for leaf in seg.values():
-                n_pages, _, ps, _ = leaf.shape[-4:]
-                total += (leaf.numel() / (n_pages * ps)
-                          * leaf.element_size() * n)
+        for seg, ax in zip(self.caches, self.axes):
+            for name, leaf in seg.items():
+                if ax[name] is None:   # page pool: n tokens' worth of K/V
+                    n_pages, _, ps, _ = leaf.shape[-4:]
+                    total += (leaf.numel() / (n_pages * ps)
+                              * leaf.element_size() * n)
+                else:                  # per-slot state: one batch row
+                    total += (leaf.numel() // leaf.shape[ax[name]]
+                              * leaf.element_size())
         return float(total)
 
     # -- fused decode blocks ---------------------------------------------------

@@ -17,8 +17,9 @@ leaf: :func:`insert_rows` copies a prefill's rows in and
 
 For a P/D hand-off, :func:`gather_slot_kv` linearizes one sequence's
 pages through the page-gather kernel (one launch per pool, all layers
-at once) and :func:`scatter_slot_kv` installs them on the destination
-with ``index_copy_``.
+at once) and copies out its slot's row of every per-slot leaf (Mamba-2
+conv and SSM state); :func:`scatter_slot_kv` installs both on the
+destination, the pages with ``index_copy_`` and the rows in place.
 """
 
 from __future__ import annotations
@@ -181,7 +182,8 @@ class KVPayload:
 
     ``kv`` mirrors the engine's cache tree with each page pool
     linearized to token-major ``(L, H, n_tokens, D)`` — page-layout-free,
-    so the destination may use a different page size.
+    so the destination may use a different page size — and each
+    per-slot leaf (Mamba-2 state) as the slot's bare row.
     """
 
     rid: int
@@ -236,35 +238,33 @@ def clear_rows(caches, axes, slots):
     return _map_leaves(wipe, caches, axes)
 
 
-def _slot_state_not_ported(ax):
-    raise NotImplementedError(
-        f"per-slot cache state (batch axis {ax}) belongs to Mamba/hybrid "
-        f"models (ROADMAP.md §1 'Mamba-2 + hybrid')"
-    )
-
-
-def gather_slot_kv(caches, axes, page_ids: torch.Tensor, n_tokens: int):
+def gather_slot_kv(caches, axes, slot: int, page_ids: torch.Tensor,
+                   n_tokens: int):
     """Materialize one sequence's cache: every page pool (axis None) is
     gathered contiguous through ``page_ids`` — one page-gather launch
-    per pool, covering all layers — and sliced to ``n_tokens``."""
+    per pool, covering all layers — and sliced to ``n_tokens``; every
+    per-slot leaf gives a copy of row ``slot`` on its batch axis."""
     def take(leaf, ax):
         if ax is not None:
-            _slot_state_not_ported(ax)
+            return leaf.select(ax, slot).clone()
         return ops.page_gather(leaf, page_ids)[:, :, :n_tokens]
 
     return _map_leaves(take, caches, axes)
 
 
-def scatter_slot_kv(caches, axes, page_ids: torch.Tensor, payload_kv):
-    """Inverse of :func:`gather_slot_kv` on the destination engine:
-    each contiguous (L, H, T, D) leaf is padded to the destination's
-    page multiple and copied into the pool's ``page_ids`` (the
-    destination allocator's choice) in place."""
+def scatter_slot_kv(caches, axes, slot: int, page_ids: torch.Tensor,
+                    payload_kv):
+    """Inverse of :func:`gather_slot_kv` on the destination engine, in
+    place: each contiguous (L, H, T, D) leaf is padded to the
+    destination's page multiple and copied into the pool's ``page_ids``
+    (the destination allocator's choice); each per-slot row lands in row
+    ``slot``."""
     ids = page_ids.long()
 
     def put(leaf, ax, seq):
         if ax is not None:
-            _slot_state_not_ported(ax)
+            leaf.select(ax, slot).copy_(seq)
+            return leaf
         n_l, _, h, ps, d = leaf.shape
         m = ids.shape[0]
         t = seq.shape[2]

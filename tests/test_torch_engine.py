@@ -412,3 +412,169 @@ def test_kv_manager_tables_disjoint_and_device_table():
     assert kv.device_table() is t          # unchanged table: no re-upload
     kv.release(2)
     assert kv.device_table() is not t
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (mamba2-2.7b) and the hybrid (zamba2-7b) on both planes
+# ---------------------------------------------------------------------------
+
+SSM_ARCHS = ["mamba2-2.7b", "zamba2-7b"]
+_SSM: dict = {}
+
+
+def _ssm(arch, use_kernels=False):
+    """(port model, JAX model, JAX params, JAX fn_cache) on the same
+    weights.  Both models take the same SSD route: the chunked
+    ``ssd_scan`` without ``use_kernels``; with it, where the kernel gate
+    holds, the sequential ``ssd_ref`` (the port's kernel on the CPU, the
+    JAX package's "jnp" kernel oracle)."""
+    key = (arch, use_kernels)
+    if key not in _SSM:
+        cfg = get_smoke_config(arch)
+        jm = jax_build(jax_smoke(arch), use_kernels=use_kernels)
+        jp = jm.init(jax.random.key(5))
+        m = Model(cfg, device="cpu", use_kernels=use_kernels)
+        m.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp), cfg))
+        _SSM[key] = (m, jm, jp, {})
+    return _SSM[key]
+
+
+def _serve_ssm_both(arch, prompts, max_new, use_kernels=False, **ekw):
+    model, jm, jp, fc = _ssm(arch, use_kernels)
+    eng = InferenceEngine(model, EngineConfig(**ekw))
+    jeng = JEngine(jm, jp, JEngineConfig(**ekw), fn_cache=fc)
+    got = _serve(eng, Request.from_prompt, prompts, max_new)
+    want = _serve(jeng, JRequest.from_prompt, prompts, max_new)
+    return got, want, eng, jeng
+
+
+def _state_rows_clear(eng):
+    """Every per-slot cache leaf (Mamba-2 state; on the slot plane also
+    attention rows) of a drained engine holds zeros (pos: -1)."""
+    for seg, ax in zip(eng.caches, eng.axes):
+        for name, leaf in seg.items():
+            if ax[name] is not None:
+                fill = -1 if leaf.dtype == torch.int32 else 0
+                assert (leaf == fill).all(), name
+
+
+@pytest.mark.parametrize("decode_block", [1, 8])
+@pytest.mark.parametrize("paged", [True, False])
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_engine_tokens_match_jax(arch, paged, decode_block):
+    """Token for token with the JAX engine, and the same schedule, on
+    the paged plane (chunks of 8 over pages of 4; SSM state in slot rows,
+    a chunk of length 0 freezing it) and on the slot plane (prompts padded
+    to 8/16/32, so the SSD gate holds on some prefills); 3 slots for 6
+    requests, so rows are released and reused — and zeroed at release."""
+    prompts = _prompts(11, (13, 5, 21, 9, 3, 17))
+    max_new = [6, 9, 4, 12, 5, 7]
+    got, want, eng, jeng = _serve_ssm_both(
+        arch, prompts, max_new, n_slots=3, max_len=64, prefill_batch=2,
+        paged=paged, page_size=4, chunk_size=8, decode_block=decode_block)
+    assert got == want
+    assert [len(g) for g in got] == max_new
+    assert eng.paged is jeng.paged is paged
+    assert eng.decode_block_hist == jeng.decode_block_hist
+    assert eng.n_dispatches == jeng.n_dispatches
+    assert eng.n_prefill_tokens == jeng.n_prefill_tokens
+    if paged:
+        assert eng.kv.n_free_pages == eng.kv.n_pages
+        _state_rows_clear(eng)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_slot_plane_kernel_route_matches_jax(arch, monkeypatch):
+    """``use_kernels`` on both sides: prompts padded to 16 = the smoke
+    chunk run the SSD kernel's gate (its plain version on the CPU, the
+    JAX package's oracle), the others the chunked scan — tokens still
+    identical, and the gate was taken."""
+    from repro_torch.kernels import ref
+    calls = []
+    real = ref.ssd_ref
+    monkeypatch.setattr(ref, "ssd_ref",
+                        lambda *a: calls.append(a[0].shape) or real(*a))
+    prompts = _prompts(12, (13, 9, 5, 11))
+    got, want, eng, _ = _serve_ssm_both(
+        arch, prompts, [5, 4, 6, 3], use_kernels=True, n_slots=2,
+        max_len=48, prefill_batch=2, paged=False, decode_block=8)
+    assert got == want
+    assert calls and all(shape[1] == 16 for shape in calls)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_preemption_matches_jax(arch):
+    """A pool of 5 pages of 4 for two requests of 10 + 6 tokens:
+    preempt-youngest releases the victim's pages and zeroes its SSM row,
+    recompute restores it — tokens equal the JAX engine's and a roomy
+    pool's."""
+    prompts = _prompts(3, (10, 10))
+    kw = dict(n_slots=2, max_len=16, prefill_batch=2, page_size=4,
+              chunk_size=8)
+    got, want, eng, _ = _serve_ssm_both(arch, prompts, [6, 6], n_pages=5,
+                                        **kw)
+    roomy = InferenceEngine(_ssm(arch)[0], EngineConfig(**kw))
+    assert got == want == _serve(roomy, Request.from_prompt, prompts, [6, 6])
+    _state_rows_clear(eng)
+
+
+@pytest.mark.parametrize("arch", SSM_ARCHS)
+def test_ssm_export_import_carries_state_rows(arch):
+    """Port of tests/test_pd_engine.py::test_export_import_carries_ssm_
+    state_rows, for the hybrid too: prefill on A (pages of 8), export,
+    evict, import on B (pages of 4) — the payload's slot rows land
+    intact and the tokens equal the colocated run and the JAX engine's;
+    ``kv_bytes_of`` equals the payload's bytes."""
+    model, jm, jp, fc = _ssm(arch)
+
+    def eng(ps):
+        return InferenceEngine(model, EngineConfig(
+            n_slots=2, max_len=48, prefill_batch=2, page_size=ps,
+            chunk_size=16))
+
+    prompt = ((np.arange(1, 21, dtype=np.int32) * 3) % 256).astype(np.int32)
+    want = _serve(eng(8), Request.from_prompt, [prompt], [6])[0]
+    jeng = JEngine(jm, jp, JEngineConfig(n_slots=2, max_len=48,
+                                         prefill_batch=2, page_size=8,
+                                         chunk_size=16), fn_cache=fc)
+    assert want == _serve(jeng, JRequest.from_prompt, [prompt], [6])[0]
+
+    a = eng(8)
+    a.park_on_prefill = True
+    r = Request.from_prompt(0, prompt, 6)
+    a.submit(r)
+    a.run_until_done()
+    payload = a.export_kv(0)
+    assert a.kv_bytes_of(0) == payload.nbytes
+    state = next(seg for seg in payload.kv if "ssm" in seg)
+    assert state["ssm"].shape[0] == model.n_mamba
+    assert state["ssm"].shape[1:] == a.caches[-1]["ssm"].shape[2:]
+    pools = [seg for seg in payload.kv if "k_pages" in seg]
+    assert len(pools) == (model.n_attn > 0)
+    for seg in pools:
+        assert seg["k_pages"].shape[0] == model.n_attn
+        assert seg["k_pages"].shape[2] == payload.n_tokens
+    rows = {k: v.clone() for k, v in state.items()}
+    a.evict(r.slot)
+    _state_rows_clear(a)
+    b = eng(4)  # page-size change must not disturb slot-row state
+    assert b.import_kv(payload, r)
+    for k, v in rows.items():
+        assert torch.equal(b.caches[-1][k].select(1, r.slot), v)
+    b.run_until_done()
+    assert r.generated == want
+
+
+def test_mamba_and_zamba_engines_refuse_prefix_cache_and_spec_decode():
+    """A model with Mamba-2 layers refuses the prefix cache and spec
+    decode on the paged plane with the JAX engine's ValueError, word
+    for word."""
+    for arch in SSM_ARCHS:
+        model, jm, jp, _ = _ssm(arch)
+        for kw in (dict(prefix_cache=True), dict(spec_decode=True),
+                   dict(paged=False, prefix_cache=True)):
+            with pytest.raises(ValueError) as want:
+                JEngine(jm, jp, JEngineConfig(**kw))
+            with pytest.raises(ValueError) as got:
+                InferenceEngine(model, EngineConfig(**kw))
+            assert str(got.value) == str(want.value)

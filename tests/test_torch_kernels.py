@@ -18,6 +18,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import _build, decode_attention, ops, ref  # noqa: E402,E501
 from repro_torch.kernels import flash_attention as flash_mod  # noqa: E402
 from repro_torch.kernels import page_gather as gather_mod  # noqa: E402
+from repro_torch.kernels import rmsnorm as rmsnorm_mod  # noqa: E402
+from repro_torch.kernels import ssd as ssd_mod  # noqa: E402
 from repro_torch.serving.kv_manager import PagedKVManager  # noqa: E402
 
 TOL = 2e-5
@@ -168,6 +170,21 @@ def _attn_inputs(seed, b, hq, hkv, s, d):
             for shape in ((b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d))]
 
 
+def _ssd_inputs(seed, b, s, h, p, n, *, lens=None):
+    """SSD operands drawn as tests/test_kernels.py draws them (x, B, C
+    normal; dt softplus of a normal; a = -exp(0.5 * normal)); with
+    ``lens``, dt is 0 past each row's length, as the model pads it."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    a = -np.exp(0.5 * rng.standard_normal(h)).astype(np.float32)
+    bm = rng.standard_normal((b, s, n)).astype(np.float32)
+    cm = rng.standard_normal((b, s, n)).astype(np.float32)
+    if lens is not None:
+        dt[np.arange(s)[None, :] >= np.asarray(lens)[:, None]] = 0.0
+    return x, dt, a, bm, cm
+
+
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 64)])
 def test_flash_attention_plain_matches_jax(causal, window):
     """GQA 4/2 by index in the port; the JAX oracle and the Pallas
@@ -239,6 +256,91 @@ def test_page_gather_plain_matches_jax(ps):
     np.testing.assert_array_equal(got[:, :, 2 * ps:3 * ps], pages[:, 0])
 
 
+@pytest.mark.parametrize("s,h,p,n,chunk", [
+    (128, 2, 16, 32, 32), (256, 4, 16, 32, 64), (256, 4, 32, 64, 128),
+])
+def test_ssd_plain_matches_jax(s, h, p, n, chunk):
+    """The port's sequential ``ssd_ref`` against the JAX oracle and the
+    Pallas kernel (interpret mode) at tests/test_kernels.py's shapes,
+    rtol = atol = 2e-3 (chunked against sequential f32 sums, the JAX
+    package's own criterion)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.kernels import ref as jref
+    from repro.kernels.ssd import ssd as pl_ssd
+    args = _ssd_inputs(s + h, 2, s, h, p, n)
+    y, state = ref.ssd_ref(*_t(*args))
+    jargs = list(map(jnp.asarray, args))
+    for y_j, state_j in (jref.ssd_ref(*jargs),
+                         pl_ssd(*jargs, chunk=chunk, interpret=True)):
+        _close(y, y_j, 2e-3)
+        _close(state, state_j, 2e-3)
+
+
+@pytest.mark.parametrize("case", ["init_state", "padded", "groups"])
+def test_ssd_scan_matches_jax(case):
+    """The model's plain chunked scan against the JAX package's, 1e-4
+    (the same chunked f32 algorithm): a carried initial state (chunked
+    prefill), S not a multiple of the chunk (padded inside), and G = 2
+    B/C groups over 4 heads; without a carried state it also agrees with
+    the sequential oracle within 2e-3."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.models import mamba2 as jmamba
+    from repro_torch.models import mamba2
+    b, s, h, p, n, g, chunk = 2, 48, 4, 8, 16, 1, 16
+    if case == "padded":
+        s = 37
+    if case == "groups":
+        g = 2
+    rng = np.random.default_rng(len(case))
+    x, dt, a, _, _ = _ssd_inputs(len(case), b, s, h, p, n)
+    bm, cm = (rng.standard_normal((b, s, g, n)).astype(np.float32)
+              for _ in range(2))
+    init = (rng.standard_normal((b, h, p, n)).astype(np.float32)
+            if case == "init_state" else None)
+    got = mamba2.ssd_scan(*_t(x, dt, a, bm, cm), chunk=chunk,
+                          init_state=None if init is None
+                          else torch.as_tensor(init))
+    want = jmamba.ssd_scan(*map(jnp.asarray, (x, dt, a, bm, cm)),
+                           chunk=chunk,
+                           init_state=None if init is None
+                           else jnp.asarray(init))
+    _close(got[0], want[0], 1e-4)
+    _close(got[1], want[1], 1e-4)
+    if case == "padded":
+        seq = ref.ssd_ref(*_t(x, dt, a, bm[:, :, 0], cm[:, :, 0]))
+        _close(got[0], seq[0], 2e-3)
+        _close(got[1], seq[1], 2e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d,br", [(128, 64, 32), (256, 512, 256),
+                                       (64, 128, 64)])
+def test_rmsnorm_plain_matches_jax(rows, d, br, dtype):
+    """The port's ``rmsnorm_ref`` against the JAX oracle and the Pallas
+    kernel (interpret mode) at tests/test_kernels.py's shapes; 2e-5 in
+    f32, 2e-2 in bf16 (the JAX package's tolerances)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.kernels import ref as jref
+    from repro.kernels.rmsnorm import rmsnorm as pl_rmsnorm
+    rng = np.random.default_rng(rows + d)
+    x = rng.standard_normal((rows, d)).astype(np.float32)
+    sc = (0.1 * rng.standard_normal(d)).astype(np.float32)
+    xj = jnp.asarray(x).astype(getattr(jnp, dtype))
+    xt = torch.as_tensor(x).to(getattr(torch, dtype))
+    got = ref.rmsnorm_ref(xt, torch.as_tensor(sc)).float().numpy()
+    tol = TOL if dtype == "float32" else 2e-2
+    for want in (jref.rmsnorm_ref(xj, jnp.asarray(sc)),
+                 pl_rmsnorm(xj, jnp.asarray(sc), block_rows=br,
+                            interpret=True)):
+        _close(got, np.asarray(want, np.float32), tol)
+
+
 # ---------------------------------------------------------------------------
 # Dispatch and wrapper refusals (CPU)
 # ---------------------------------------------------------------------------
@@ -264,6 +366,11 @@ def test_ops_send_cpu_tensors_to_the_plain_versions():
     ids = torch.tensor([1, -1], dtype=torch.int32)
     assert torch.equal(ops.page_gather(pages, ids),
                        ref.page_gather_ref(pages, ids))
+    sargs = _t(*_ssd_inputs(2, 2, 32, 2, 8, 16))
+    for got, want in zip(ops.ssd(*sargs, chunk=16), ref.ssd_ref(*sargs)):
+        assert torch.equal(got, want)
+    xr, sc = torch.randn(3, 8), torch.randn(8)
+    assert torch.equal(ops.rmsnorm(xr, sc), ref.rmsnorm_ref(xr, sc))
     assert ops.launch_counts() == before  # no kernel ran
 
 
@@ -290,7 +397,8 @@ def test_launch_counts_only_a_launch_the_entry_point_reports(monkeypatch,
     assert calls == [(1, 2)]
     assert ops.launch_counts() == {"paged_decode_attention": counted,
                                    "page_gather": 0, "flash_attention": 0,
-                                   "decode_attention": 0}
+                                   "decode_attention": 0, "ssd": 0,
+                                   "rmsnorm": 0}
     ops.reset_launch_counts()
 
 
@@ -311,6 +419,11 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention.decode_attention(x[:, :, 0], x, x,
                                           torch.ones(1, dtype=torch.int32))
+    xs, dt, a, bm, cm = _t(*_ssd_inputs(0, 1, 32, 2, 8, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_mod.ssd(xs, dt, a, bm, cm, chunk=16)
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_mod.rmsnorm(torch.zeros(2, 8), torch.zeros(8))
 
 
 # ---------------------------------------------------------------------------
@@ -332,7 +445,7 @@ def cuda():
 @pytest.mark.parametrize("b,hq,hkv,d,ps", [
     (3, 2, 2, 16, 4), (3, 2, 2, 8, 8), (2, 6, 2, 16, 4), (4, 4, 4, 128, 16),
     (2, 40, 8, 128, 16), (2, 4, 4, 64, 16), (3, 4, 2, 64, 80),
-    (2, 8, 4, 128, 48),
+    (2, 8, 4, 128, 48), (2, 4, 4, 112, 16),
 ])
 def test_paged_decode_attention_kernel_matches_plain(cuda, dtype, b, hq,
                                                      hkv, d, ps):
@@ -384,13 +497,28 @@ def test_empty_calls_launch_nothing_and_count_nothing(cuda):
                                              device=cuda))
     assert out.shape == (1, 2, 0, 16)
     assert set(ops.launch_counts().values()) == {0}
+    y, st = ssd_mod.ssd(torch.zeros(0, 32, 2, 8, device=cuda),
+                        torch.zeros(0, 32, 2, device=cuda),
+                        torch.zeros(2, device=cuda),
+                        torch.zeros(0, 32, 16, device=cuda),
+                        torch.zeros(0, 32, 16, device=cuda), chunk=16)
+    assert y.shape == (0, 32, 2, 8) and st.shape == (0, 2, 8, 16)
+    out = rmsnorm_mod.rmsnorm(torch.zeros(0, 8, device=cuda),
+                              torch.zeros(8, device=cuda))
+    assert out.shape == (0, 8)
+    assert set(ops.launch_counts().values()) == {0}
     decode_attention.paged_decode_attention(
         torch.zeros(2, 2, 16, device=cuda), pages, pages, table, kv_len)
     gather_mod.page_gather(pages[None], table[0])
+    ssd_mod.ssd(*(torch.as_tensor(v).to(cuda)
+                  for v in _ssd_inputs(0, 1, 32, 2, 8, 16)), chunk=16)
+    rmsnorm_mod.rmsnorm(torch.ones(3, 8, device=cuda),
+                        torch.zeros(8, device=cuda))
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"paged_decode_attention": 1,
                                    "page_gather": 1, "flash_attention": 0,
-                                   "decode_attention": 0}
+                                   "decode_attention": 0, "ssd": 1,
+                                   "rmsnorm": 1}
 
 
 @pytest.mark.cuda
@@ -425,7 +553,7 @@ def _card_attn(cuda, seed, b, hq, hkv, s, d, dt):
     (2, 4, 2, 128, 16, True, 0), (1, 2, 2, 40, 32, True, 0),
     (2, 2, 1, 200, 64, False, 0), (1, 4, 4, 130, 128, True, 48),
     (2, 8, 4, 8, 256, True, 0), (1, 8, 4, 300, 256, True, 100),
-    (1, 2, 2, 64, 64, False, 16),
+    (1, 2, 2, 64, 64, False, 16), (1, 4, 4, 130, 112, True, 0),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, b, hq, hkv, s, d,
                                               causal, window):
@@ -444,7 +572,7 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, hq, hkv, s, d,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hq,hkv,s,d", [
     (3, 4, 2, 24, 16), (4, 8, 4, 600, 256), (3, 4, 4, 513, 128),
-    (2, 6, 2, 40, 64),
+    (2, 6, 2, 40, 64), (3, 4, 4, 300, 112),
 ])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, b, hq, hkv, s, d):
     """Any S (split over blocks of 256 positions), GQA, and a kv_len == 0
@@ -462,3 +590,81 @@ def test_decode_attention_kernel_matches_plain(cuda, dtype, b, hq, hkv, s, d):
     tol = TOL if dt == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert (got[0] == 0).all()
+
+
+SSD_CARD_SHAPES = [  # (b, s, h, p, n, chunk)
+    (2, 128, 2, 16, 32, 32), (2, 256, 4, 16, 32, 64),
+    (2, 256, 4, 32, 64, 128),          # tests/test_kernels.py's sweep
+    (3, 64, 3, 8, 16, 16),             # the smoke configs' SSM
+    (2, 512, 3, 64, 128, 256),         # mamba2-2.7b's head and state
+    (2, 512, 2, 64, 64, 256),          # zamba2-7b's
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_CARD_SHAPES)
+def test_ssd_kernel_matches_plain(cuda, dtype, b, s, h, p, n, chunk):
+    """y and the final state against the sequential recurrence, with
+    pad rows (dt = 0 past each row's length: the state must stop at the
+    row's true end).  rtol = atol = 2e-3 in f32, as
+    tests/test_kernels.py holds the Pallas kernel; 2e-2 in bf16."""
+    dt_ = getattr(torch, dtype)
+    lens = [s, s - chunk // 2 - 3, 5][:b]
+    x, dt, a, bm, cm = _ssd_inputs(s + p + n, b, s, h, p, n, lens=lens)
+    x, bm, cm = (torch.as_tensor(v).to(cuda, dt_) for v in (x, bm, cm))
+    dt, a = (torch.as_tensor(v).to(cuda) for v in (dt, a))
+    y, state = ssd_mod.ssd(x, dt, a, bm, cm, chunk=chunk)
+    y_want, state_want = ref.ssd_ref(x, dt, a, bm, cm)
+    torch.cuda.synchronize()
+    tol = 2e-3 if dt_ == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(state, state_want, rtol=tol, atol=tol)
+    # the final state of a padded row is its state at its true end
+    n1 = lens[1]
+    _, at_end = ref.ssd_ref(x[1:2, :n1], dt[1:2, :n1], a, bm[1:2, :n1],
+                            cm[1:2, :n1])
+    torch.testing.assert_close(state[1:2], at_end, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda):
+    x, dt, a, bm, cm = (torch.as_tensor(v).to(cuda)
+                        for v in _ssd_inputs(0, 1, 32, 2, 8, 16))
+    with pytest.raises(ValueError, match="multiple"):   # S % Q != 0
+        ssd_mod.ssd(x, dt, a, bm, cm, chunk=64)
+    with pytest.raises(TypeError):                      # dt not f32
+        ssd_mod.ssd(x, dt.bfloat16(), a, bm, cm, chunk=16)
+    with pytest.raises(TypeError):                      # x and B differ
+        ssd_mod.ssd(x, dt, a, bm.bfloat16(), cm, chunk=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_mod.ssd(x.transpose(1, 2).contiguous().transpose(1, 2), dt, a,
+                    bm, cm, chunk=16)
+    with pytest.raises(ValueError):                     # G = 2 groups
+        ssd_mod.ssd(x, dt, a, bm.reshape(1, 32, 2, 8),
+                    cm.reshape(1, 32, 2, 8), chunk=16)
+    with pytest.raises(ValueError, match="d_state"):    # no such instance
+        ssd_mod.ssd(x[..., :4].contiguous(), dt, a, bm, cm, chunk=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", [(128, 64), (256, 512), (64, 128),
+                                    (7, 5120), (3, 7168)])
+def test_rmsnorm_kernel_matches_plain(cuda, dtype, rows, d):
+    """tests/test_kernels.py's shapes, an odd row count and the widest
+    norm of the configs; the scale in f32 and in x's dtype."""
+    dt_ = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(rows + d)
+    x = torch.randn(rows, d, generator=g, device=cuda).to(dt_)
+    scale = 0.1 * torch.randn(d, generator=g, device=cuda)
+    tol = TOL if dt_ == torch.float32 else 2e-2
+    for sc in (scale, scale.to(dt_)):
+        got = rmsnorm_mod.rmsnorm(x, sc)
+        want = ref.rmsnorm_ref(x, sc)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+    with pytest.raises(ValueError):   # D not a whole number of 16-byte words
+        rmsnorm_mod.rmsnorm(torch.zeros(2, 6, device=cuda),
+                            torch.zeros(6, device=cuda))
