@@ -7,7 +7,11 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 ``build/kernels/``), then runs eight phases, each printing a JSON line
 (``hybrid`` a second one for its hand-off, ``parity`` one per model):
 
-1. ``device``  — the card, its power limit and the kernel build time.
+1. ``device``  — the card, its power limit and the kernel build time;
+   then ``tensor_cores``: for the flash-attention and SSD libraries,
+   ptxas's registers and spills of each tensor-core kernel and the
+   HGMMA (wgmma) instructions ``cuobjdump -sass`` finds (none, or no
+   cuobjdump, fails the run).
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card (``rtol = atol =`` 2e-5 in f32 with TF32 off, 2e-2 in bf16, the
    gather exactly, SSD 2e-3 in f32 as tests/test_kernels.py holds it)
@@ -18,7 +22,8 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
    from ``torch.profiler``'s events; the kernel also with CUDA events
    over back-to-back calls) beside its bound, its plain version and a
    PyTorch library call that computes the same function, where one
-   exists (none computes SSD).
+   exists (none computes SSD); flash attention and SSD also beside
+   their CUDA-core instances on the same bf16 inputs (``fma_ms``).
 3. ``serve``   — qwen7b at full width in bf16 (weights drawn on the card
    from a seeded generator) serving 16 Table-1 requests through the
    paged engine; every request must finish with its ``l_out`` tokens
@@ -76,6 +81,7 @@ from __future__ import annotations
 import dataclasses
 import gzip
 import json
+import re
 import subprocess
 import sys
 import time
@@ -286,6 +292,54 @@ def kernels_phase(torch, dev):
             "rmsnorm": norm}
 
 
+def tensor_core_report(_build) -> dict:
+    """For each redesigned library (flash attention, SSD): what ptxas
+    said of each tensor-core kernel (registers, spills, stack and any
+    C75xx performance note, from the -Xptxas -v build) and the HGMMA
+    (wgmma) instructions per function in ``cuobjdump -sass``.  Fails if
+    cuobjdump is missing from the toolkit or a library holds no HGMMA."""
+    cuobjdump = _build.cuda_tool("cuobjdump")
+    out = {}
+    for name in ("flash_attention", "ssd"):
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(_build.library_path(name))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        hgmma: dict[str, int] = {}
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+            elif fn and re.search(r"\bHGMMA\b", line):
+                hgmma[fn] = hgmma.get(fn, 0) + 1
+        check(sum(hgmma.values()) > 0,
+              f"the {name} library holds no HGMMA instruction")
+        ptxas: dict[str, dict] = {}
+        notes = []
+        cur = None
+        for line in _build.build_log.get(name, "").splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = m.group(1) if re.search(r"_(tc|cb)_kernel", m.group(1)) \
+                    else None
+                if cur:
+                    ptxas[cur] = {}
+            elif "C75" in line:
+                notes.append(line.strip())
+            elif cur:
+                for key, pat in (("registers", r"Used (\d+) registers"),
+                                 ("stack_bytes", r"(\d+) bytes stack frame"),
+                                 ("spill_stores", r"(\d+) bytes spill stores"),
+                                 ("spill_loads", r"(\d+) bytes spill loads")):
+                    m = re.search(pat, line)
+                    if m:
+                        ptxas[cur][key] = int(m.group(1))
+        out[name] = {"hgmma": sum(hgmma.values()), "hgmma_by_function": hgmma,
+                     "ptxas": ptxas or "built earlier: no ptxas report",
+                     "ptxas_notes": notes}
+    return out
+
+
 def compare(torch, got, want, tol, name):
     """``got`` against ``want`` with ``rtol = atol = tol``, the criterion
     of tests/test_kernels.py (fails on a non-finite value too); returns
@@ -320,20 +374,25 @@ def device_ms(torch, fn, iters: int = 5) -> float:
     on the card, from ``torch.profiler``'s events over ``iters`` calls,
     summed and divided by ``iters``.  Unlike ``cuda_ms`` it leaves out
     the host's gaps between launches, which dominate calls of a few
-    tens of microseconds."""
+    tens of microseconds.  The tracer now and then hands back no device
+    event for a whole window (seen for library calls that record fine in
+    other runs), so a window without one is traced again, up to three
+    times, before the run fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    check(us > 0, "the profiler recorded no device time")
-    return us / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    check(False, "the profiler recorded no device time in three windows")
 
 
 def flash_pairs(s: int, causal: bool, window: int) -> int:
@@ -346,9 +405,11 @@ def flash_pairs(s: int, causal: bool, window: int) -> int:
 
 def flash_kernel_rows(torch, dev):
     """Flash attention against its plain version at gemma3's prefill
-    shape (global and local layers) and qwen7b's, a ragged S and a
-    bidirectional case; timed at gemma3's local-layer shape, which 29 of
-    its 34 layers run."""
+    shape (global and local layers) and qwen7b's, ragged S, narrow
+    windows and bidirectional cases in both dtypes (bf16 on the tensor-
+    core instance, f32 on the CUDA-core one); timed at gemma3's
+    local-layer shape, which 29 of its 34 layers run, beside the
+    CUDA-core instance on the same bf16 inputs (``fma_ms``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, ref
@@ -365,6 +426,13 @@ def flash_kernel_rows(torch, dev):
         ("zamba2_d112_bf16", (4, 32, 32, 2048, 112), True, 0, bf16, 2e-2),
         ("zamba2_d112_ragged_f32", (1, 32, 32, 1100, 112), True, 0, f32,
          2e-5),
+        ("ragged1100_window64_bf16", (2, 8, 4, 1100, 256), True, 64, bf16,
+         2e-2),
+        ("ragged40_bf16", (2, 8, 4, 40, 256), True, 0, bf16, 2e-2),
+        ("bidirectional_d112_bf16", (1, 32, 32, 1100, 112), False, 0, bf16,
+         2e-2),
+        ("qwen7b_window64_bf16", (2, 32, 32, 300, 128), True, 64, bf16,
+         2e-2),
     ):
         g = torch.Generator(device=dev).manual_seed(s + d + window)
         q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
@@ -393,6 +461,9 @@ def flash_kernel_rows(torch, dev):
                                                 window=window),
                 lambda: F.scaled_dot_product_attention(
                     q, k, v, attn_mask=band, enable_gqa=True), 10),
+            # the CUDA-core instance on the same inputs
+            fma_ms=device_ms(torch, lambda: flash_attention.flash_attention(
+                q, k, v, causal=causal, window=window, fma=True)),
             **bound_row(n_bytes, flops, BF16_FLOPS_PER_S),
             shape={"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
                    "causal": causal, "window": window, "dtype": "bfloat16"})
@@ -473,21 +544,26 @@ def ssd_inputs(torch, dev, *, b, s, h, p, n, dtype, lens=None, seed=3):
 
 def ssd_work(b, s, h, p, n, q, itemsize) -> tuple[int, int]:
     """Bytes the SSD must move (x and B/C and dt read, y and the final
-    state written, once each) and the flops it must do: per (b, head,
-    chunk) the causal half of C B^T and of S x, reachable pairs as the
-    flash row counts them, plus C . state and the state update."""
+    state written, once each) and the least flops it must do: the
+    causal half of C B^T once per (b, chunk), for all heads (it does
+    not depend on the head), and per (b, head, chunk) the causal half
+    of S x, reachable pairs as the flash row counts them, plus C . state
+    and the state update."""
     n_bytes = (2 * b * s * h * p * itemsize + 2 * b * s * n * itemsize
                + 4 * b * s * h + 4 * h + 4 * b * h * p * n)
-    per_chunk = q * (q + 1) * (n + p) + 4 * q * p * n
-    return n_bytes, b * h * (s // q) * per_chunk
+    per_chunk = q * (q + 1) * n
+    per_head_chunk = q * (q + 1) * p + 4 * q * p * n
+    return n_bytes, b * (s // q) * (per_chunk + h * per_head_chunk)
 
 
 def ssd_kernel_rows(torch, dev):
     """The SSD kernel against the sequential recurrence at mamba2's and
     zamba2's prefill shapes (B 4, S 2048, P 64, Q 256; H 80 / N 128 and
     H 112 / N 64), with pad rows (dt = 0 past each row's length), f32
-    (2e-3) and bf16 (2e-2); timed in bf16 at both, beside the model's
-    plain chunked scan (the route taken when the kernel's gate fails)."""
+    (2e-3, the CUDA-core instance) and bf16 (2e-2, the tensor-core
+    one); timed in bf16 at both, beside the model's plain chunked scan
+    (the route taken when the kernel's gate fails) and the CUDA-core
+    instance on the same inputs (``fma_ms``)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd as ssd_mod
     from repro_torch.models import mamba2
@@ -520,6 +596,10 @@ def ssd_kernel_rows(torch, dev):
                       plain_iters=1),
             scan_ms=device_ms(torch, lambda: mamba2.ssd_scan(
                 x, dt, a, bm[:, :, None], cm[:, :, None], chunk=q), 2),
+            # the CUDA-core instance on the same inputs
+            fma_ms=device_ms(torch, lambda: ssd_mod.ssd(
+                x, dt, a, bm, cm, chunk=q, fma=True)),
+            tensor_cores=ssd_mod.uses_tensor_cores(x, n),
             **bound_row(n_bytes, flops, BF16_FLOPS_PER_S),
             shape={"B": b, "S": s, "H": h, "P": p, "N": n, "Q": q,
                    "lens": lens, "dtype": "bfloat16"})
@@ -1117,6 +1197,7 @@ def main() -> int:
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi, "build_s": build_s,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+    emit({"phase": "tensor_cores", **tensor_core_report(_build)})
 
     def load(name: str, dtype=torch.bfloat16):
         t0 = time.perf_counter()

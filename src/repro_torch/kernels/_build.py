@@ -8,6 +8,11 @@ the shared ``csrc/*.cuh`` headers, and is loaded with :mod:`ctypes`.  All source
 calls and later processes reuse the libraries.  Nothing is built when
 this module is imported.
 
+The tensor-core kernels (``hopper.cuh``) encode their TMA tensor maps
+with the driver's ``cuTensorMapEncodeTiled``, which they fetch at run
+time through ``cudaGetDriverEntryPoint``; the libraries link against
+the CUDA runtime only, so the build needs no ``-lcuda``.
+
 :func:`launch` is the one place a kernel is launched, so it also keeps
 each kernel's launch count: a plain int that goes up by one when the C
 entry point reports a successful launch, and nowhere else.
@@ -64,6 +69,14 @@ SIGNATURES = {
         [_VOID_P] * 3 + [_INT] * 3 + [ctypes.c_float, _VOID_P],
     ),
 }
+# further C entry points of a library: name -> (library, argtypes)
+ENTRIES = {
+    # the CUDA-core flash instance for either dtype (a yardstick)
+    "flash_attention_fma_launch": ("flash_attention",
+                                   SIGNATURES["flash_attention"][1]),
+    # the tensor-core SSD (bf16), with its C B^T workspace
+    "ssd_tc_launch": ("ssd", [_VOID_P] * 8 + [_INT] * 5 + [_VOID_P]),
+}
 # dtype code the entry points take
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -83,17 +96,23 @@ def reset_launch_counts() -> None:
         _launches[name] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(tool: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``): on PATH,
+    else under $CUDA_HOME or /usr/local/cuda; raises if it is missing."""
+    found = shutil.which(tool)
     if found:
         return found
     for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if root and Path(root, "bin", "nvcc").exists():
-            return str(Path(root, "bin", "nvcc"))
+        if root and Path(root, "bin", tool).exists():
+            return str(Path(root, "bin", tool))
     raise RuntimeError(
-        "nvcc not found (looked on PATH, $CUDA_HOME and /usr/local/cuda): "
-        "the CUDA kernels cannot be built"
+        f"{tool} not found (looked on PATH, $CUDA_HOME and /usr/local/cuda)"
     )
+
+
+def library_path(name: str) -> Path:
+    """The built shared library of kernel ``name``."""
+    return _target(name)
 
 
 def _target(name: str) -> Path:
@@ -111,7 +130,7 @@ def build_all() -> float:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [n for n in SIGNATURES if not _target(n).exists()]
     if todo:
-        nvcc = _nvcc()
+        nvcc = cuda_tool("nvcc")
         procs = {}
         for name in todo:
             tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
@@ -142,10 +161,14 @@ def library(name: str) -> ctypes.CDLL:
             if not _target(name).exists():
                 build_all()
             lib = ctypes.CDLL(str(_target(name)))
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            entries = [SIGNATURES[name]] + [
+                (fn_name, argtypes)
+                for fn_name, (owner, argtypes) in ENTRIES.items()
+                if owner == name]
+            for fn_name, argtypes in entries:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[name] = lib
         return lib
 
@@ -182,10 +205,14 @@ def check_operands(floats: dict, ints: dict,
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def launch(name: str, *args) -> None:
-    """Call kernel ``name``'s C entry point, raise if the launch reported
-    an error (cudaGetLastError right after the launch), else count it."""
-    fn = getattr(library(name), SIGNATURES[name][0])
+def launch(name: str, *args, entry: Optional[str] = None) -> None:
+    """Call kernel ``name``'s C entry point (or its further ``entry`` of
+    ``ENTRIES``), raise if the launch reported an error (cudaGetLastError
+    right after the launch), else count it: one count per call, whatever
+    number of CUDA kernels the entry point runs."""
+    if entry is not None and ENTRIES[entry][0] != name:
+        raise ValueError(f"{entry} is not an entry point of {name}")
+    fn = getattr(library(name), entry or SIGNATURES[name][0])
     err = fn(*args)
     if err != 0:
         raise RuntimeError(

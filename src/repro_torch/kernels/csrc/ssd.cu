@@ -10,38 +10,77 @@
 //   state = state exp(cum_last) + sum_k dt_k exp(cum_last - cum_k) x_k (x) B_k
 // y comes back in x's dtype, the final state (B, H, P, N) in f32.  A pad
 // row (dt = 0) leaves the state as it was, so the final state is the
-// state at each row's true end.
+// state at each row's true end.  Any chunk length gives the same
+// function (the recurrence is exact); the chunk only orders the sums.
 //
-// What bounds it on the card: both, nearly equally.  Per (b, head,
-// chunk) the two (Q, Q) products over their causal half, C . state and
-// the state update cost Q(Q+1)(N+P) + 4QPN flops, about 21 MFLOP at
-// Q 256, P 64, N 128; at mamba2's prefill shape (B 4, S 2048, H 80) that
-// is 54 GFLOP, 0.054 ms at 989 TFLOP/s (bf16 tensor cores), against
-// 185 MB of x, y, B, C, dt and the final state, 0.055 ms at 3.35 TB/s.
+// What bounds it on the card: bytes.  The least work is C B^T once per
+// (b, chunk) for all heads, and per (b, head, chunk) the causal half of
+// (masked S) x, C . state and the state update; at mamba2's prefill shape
+// (B 4, S 2048, H 80, P 64, N 128, Q 256) that is 32.5 GFLOP, 0.033 ms at
+// 989 TFLOP/s, against 185 MB of x, y, B, C, dt and the final state,
+// 0.055 ms at 3.35 TB/s.
 //
-// How the design answers that, as a first kernel: it computes on the
-// CUDA cores in f32 (for f32 and bf16 inputs alike), so its ceiling is
-// the 67 TFLOP/s f32 rate; wgmma is later work.  The Pallas grid walks
-// the chunks in sequence with the (P, N) state in VMEM scratch; on the
-// card blocks run in parallel and carry nothing, so one block owns one
-// (head, b), loops over the chunks itself and keeps the state in shared
-// memory.  The (Q, Q) score matrix does not fit beside the f32 B and C
-// chunks, so a chunk is cut into tiles of T = 64 rows (16 or 32 for a
-// smaller Q): for query tile i and key tile j <= i the block forms
-// S = C_i B_j^T, scales it by exp(cum_q - cum_k) dt_k where k <= q and
-// sets it to 0 elsewhere (the exponent is never taken above the
-// diagonal, where it could overflow), and adds S x_j to the tile's
-// output; the carried state's term goes in first.  While it walks the
-// last query tile, whose key tiles cover the whole chunk, it also sums
-// the state update.  Tiles are staged as f32 in shared memory with rows
-// padded by 4 floats; 256 threads form a 16 x 16 grid whose inner loops
-// read 16-byte vectors along the reduction axis without bank conflicts,
-// as in flash_attention.cu.  x, dt, B and C are read in their model
-// layout; the TPU wrapper's transposes are blocking and are not needed.
+// Two instances:
+//
+// * bf16 with (P, N) = (64, 128) (mamba2) or (64, 64) (zamba2) and S a
+//   multiple of 64: the tensor-core instance (namespace tc, entry point
+//   ssd_tc_launch), two kernels on one stream.
+//   1. ssd_cb_kernel: C B^T of each 64-row chunk, once per (b, chunk)
+//      for all heads (wgmma m64n64k16, bf16 operands exact), into an f32
+//      workspace in the accumulator's own register order, so the second
+//      kernel reads it with conflict-free 16-byte loads: B * S * 64 * 4
+//      bytes (2 MB at mamba2's shape, read from L2 by every head).
+//   2. ssd_tc_kernel: one block per (b, pair of heads), walking the
+//      chunks of 64 rows in sequence.  A producer thread streams each
+//      chunk's C, B (TMA, 2-D maps over (N, B * S)), x of both heads (3-D map over (P, H, B * S)) and the
+//      C B^T tile (a bulk copy) through a 2-stage ring of mbarriers; each
+//      of two consumer warpgroups owns one head and keeps its (P, N) state
+//      in f32 registers (the accumulator of the update) from the first
+//      chunk to the last:
+//        y  = exp(cum_q) C . state    wgmma, state staged in shared memory
+//           + M x                     wgmma, M from registers
+//        state = state exp(cum_last) + (w x)^T B    wgmma, (w x) from
+//                                                   registers
+//      where M = C B^T exp(cum_q - cum_k) dt_k below the diagonal and 0
+//      above it (the exponent is never taken there: it could overflow,
+//      and inf * 0 is NaN), w_k = dt_k exp(cum_last - cum_k).
+//   Precision: C, B and x are bf16 and go into wgmma as they are.  The
+//   f32 operands (M, w x and the state) are cut into hi + lo, two bf16
+//   halves, and each product runs twice (hi, then lo, into the same f32
+//   accumulator), which holds them to 2^-17 of their size (tf32 would
+//   give 2^-11 and bf16 alone 2^-9, too coarse for y near 0 against
+//   rtol = atol = 2e-2).  The state itself stays f32 throughout.
+//   The chunk is 64 rows whatever Q the caller names: it is the wgmma
+//   tile, and it does less quadratic work than 256 rows (the state terms,
+//   linear in the chunk count, cost no more than the (Q, Q) product they
+//   replace).  The cost of the workspace: 2 MB written and 2 MB read per
+//   head pair from L2; the chunks' states never leave the block.
+//   Shared memory at N 128: 2 stages of C, B (16 KB each), x (2 x 8 KB)
+//   and C B^T (16 KB), and each head's staged state (hi and lo, 16 KB
+//   each): 194 KB; registers: the state is N / 2 floats a thread.
+//   What bounds it now: each chunk's products wait for the previous
+//   chunk's state (C . state) and for each other within a warpgroup;
+//   160 blocks for 132 SMs at mamba2's shape (one head per block, 320
+//   blocks of 160 threads, was slower); registers: the 288-thread block
+//   is budgeted as three warpgroups (168 a thread, see
+//   flash_attention.cu), which the N 128 instance fills.
+//
+// * f32 (any shape), and bf16 at every other (P, N) or chunk (the smoke
+//   and test shapes): the CUDA-core instance of the first port (namespace
+//   fma, entry point ssd_launch), unchanged.  One block owns one (head,
+//   b), loops over the chunks with the state in shared memory, cuts a
+//   chunk into tiles of 64 rows (16 or 32 for a smaller Q) and computes
+//   on the CUDA cores in f32 from tiles staged as f32 in shared memory
+//   (rows padded by 4 floats, a 16 x 16 thread grid reading 16-byte
+//   vectors along the reduction axis).  Its f32 products are what the
+//   2e-3 tests and the f32 parity runs rely on; x, dt, B and C are read
+//   in their model layout.
 
 #include "attn_common.cuh"
+#include "hopper.cuh"
 
 namespace {
+namespace fma {
 
 using attn::store_elem;
 using attn::word_to_float;
@@ -348,12 +387,363 @@ int launch_dims(int P, int N, const void* x, const void* dt, const void* a,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+}  // namespace fma
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kT = 64;        // rows of a chunk (the wgmma tile)
+constexpr int kP = 64;        // head_dim
+constexpr int kStages = 2;
+constexpr int kBlock = 64 * 128;         // bytes of a 64 x 64 bf16 block
+constexpr int kCBBytes = kT * kT * 4;    // one chunk's C B^T, f32
+
+// ---- 1. C B^T of every (b, chunk) ----------------------------------------
+
+template <int N>
+__global__ void __launch_bounds__(128)
+ssd_cb_kernel(const __grid_constant__ CUtensorMap cmap,
+              const __grid_constant__ CUtensorMap bmap,
+              float4* __restrict__ cb, int S) {
+  constexpr int kTile = N / 64 * kBlock;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Cs = base;
+  uint8_t* Bs = base + kTile;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(base + 2 * kTile);
+  const int c = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const int row = b * S + c * kT;
+  if (tid == 0) {
+    hk::mbar_init(bar, 1);
+    hk::fence_barrier_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    hk::mbar_expect_tx(bar, 2 * kTile);
+    for (int j = 0; j < N / 64; ++j) {
+      hk::tma_load_2d(Cs + j * kBlock, &cmap, bar, 64 * j, row);
+      hk::tma_load_2d(Bs + j * kBlock, &bmap, bar, 64 * j, row);
+    }
+  }
+  hk::mbar_wait(bar, 0);
+  float acc[32];
+  hk::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    const int off = (kk / 4) * kBlock + (kk % 4) * 32;
+    hk::Wgmma<64>::ss(acc, hk::desc_sw128(Cs + off, 16, 1024),
+                      hk::desc_sw128(Bs + off, 16, 1024), kk > 0);
+  }
+  hk::wgmma_commit();
+  hk::wgmma_wait<0>();
+  hk::fence_regs(acc);
+  // register order: float4 j of thread t at (j * 128 + t)
+  float4* dst = cb + ((size_t)(b * gridDim.x + c) * 8) * 128;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    dst[j * 128 + tid] = make_float4(acc[4 * j], acc[4 * j + 1],
+                                     acc[4 * j + 2], acc[4 * j + 3]);
+}
+
+// ---- 2. the scan ----------------------------------------------------------
+
+template <int N>
+struct Shape {
+  static constexpr int kTile = N / 64 * kBlock;  // C, B or a staged state
+  // C, B, x of two heads, C B^T
+  static constexpr int kStage = 2 * kTile + 2 * kBlock + kCBBytes;
+  static constexpr int kStateOffset = kStages * kStage;  // [wg][hi, lo]
+  static constexpr int kScalarOffset = kStateOffset + 4 * kTile;
+  // per warpgroup: cum, dt (64 floats each) and a scan carry
+  static constexpr int kBarOffset = kScalarOffset + 2 * (2 * kT + 4) * 4;
+  static constexpr int kSmemBytes = kBarOffset + 8 * 2 * kStages + 1024;
+};
+
+template <int N>
+__global__ void __launch_bounds__(288, 1)
+ssd_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+              const __grid_constant__ CUtensorMap cmap,
+              const __grid_constant__ CUtensorMap bmap,
+              const float* __restrict__ cb, const float* __restrict__ dt,
+              const float* __restrict__ a, bf16* __restrict__ y,
+              float* __restrict__ state_out, int S, int H) {
+  using Sh = Shape<N>;
+  constexpr int kTile = Sh::kTile;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + Sh::kBarOffset);
+  uint64_t* empty = full + kStages;
+  const int b = blockIdx.y;
+  const int nc = S / kT;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hk::mbar_init(full + s, 1);
+      hk::mbar_init(empty + s, 8);  // one arrival per consumer warp
+    }
+    hk::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer warp ----
+    if (threadIdx.x == 256) {
+      const int n_heads = min(2, H - 2 * (int)blockIdx.x);
+      const uint32_t bytes = 2 * kTile + n_heads * kBlock + kCBBytes;
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int c = 0; c < nc; ++c) {
+        hk::mbar_wait(empty + stage, phase ^ 1);
+        uint8_t* st = base + stage * Sh::kStage;
+        uint64_t* bar = full + stage;
+        const int row = b * S + c * kT;
+        hk::mbar_expect_tx(bar, bytes);
+        for (int j = 0; j < N / 64; ++j) {
+          hk::tma_load_2d(st + j * kBlock, &cmap, bar, 64 * j, row);
+          hk::tma_load_2d(st + kTile + j * kBlock, &bmap, bar, 64 * j, row);
+        }
+        for (int w = 0; w < n_heads; ++w)
+          hk::tma_load_3d(st + 2 * kTile + w * kBlock, &xmap, bar, 0,
+                          2 * blockIdx.x + w, row);
+        hk::bulk_load(st + 2 * kTile + 2 * kBlock,
+                      cb + (size_t)(b * nc + c) * kT * kT, kCBBytes, bar);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns head h ----
+  const int h = 2 * blockIdx.x + wg;
+  const bool active = h < H;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int bar_id = 1 + wg;  // named barrier of this warpgroup
+  uint8_t* st_hi = base + Sh::kStateOffset + wg * 2 * kTile;
+  uint8_t* st_lo = st_hi + kTile;
+  float* cum = reinterpret_cast<float*>(base + Sh::kScalarOffset) +
+               wg * (2 * kT + 4);
+  float* dts = cum + kT;
+  float* carry = dts + kT;
+  const float ah = active ? a[h] : 0.f;
+
+  float sacc[N / 2];  // the (P, N) state: rows p, columns n
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) sacc[i] = 0.f;
+
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int c = 0; c < nc; ++c) {
+    const uint8_t* st = base + stage * Sh::kStage;
+    const uint8_t* Cs = st;
+    const uint8_t* Bs = st + kTile;
+    const uint8_t* Xs = st + 2 * kTile + wg * kBlock;
+    const float4* CBs = reinterpret_cast<const float4*>(st + 2 * kTile +
+                                                        2 * kBlock);
+    const int row = b * S + c * kT;
+    if (active) {
+      // dt of the chunk and the inclusive prefix sum of dt * a
+      float d = 0.f, v = 0.f;
+      if (tid < kT) {
+        d = dt[(size_t)(row + tid) * H + h];
+        v = d * ah;
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const float u = __shfl_up_sync(0xffffffffu, v, o);
+          if (lane >= o) v += u;
+        }
+        if (tid == 31) carry[0] = v;
+      }
+      hk::named_sync(bar_id, 128);
+      if (tid < kT) {
+        cum[tid] = tid >= 32 ? v + carry[0] : v;
+        dts[tid] = d;
+      }
+      hk::named_sync(bar_id, 128);
+    }
+    hk::mbar_wait(full + stage, phase);
+
+    if (active) {
+      const float c_last = cum[kT - 1];
+      // y = exp(cum_q) C . state, the state staged as hi + lo (chunk > 0)
+      float yacc[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) yacc[i] = 0.f;
+      if (c > 0) {
+        hk::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < N / 16; ++kk) {
+          const int off = (kk / 4) * kBlock + (kk % 4) * 32;
+          const uint64_t dc = hk::desc_sw128(Cs + off, 16, 1024);
+          hk::Wgmma<64>::ss(yacc, dc, hk::desc_sw128(st_hi + off, 16, 1024), 1);
+          hk::Wgmma<64>::ss(yacc, dc, hk::desc_sw128(st_lo + off, 16, 1024), 1);
+        }
+        hk::wgmma_commit();
+      }
+      // meanwhile M = C B^T exp(cum_q - cum_k) dt_k (k <= q) as A fragments
+      uint32_t mhi[4][4], mlo[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 f = CBs[j * 128 + tid];
+        const float cbv[4] = {f.x, f.y, f.z, f.w};
+        float mv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const int q = hk::acc_row(tid, i), k = hk::acc_col(tid, i);
+          mv[e] = k <= q ? cbv[e] * __expf(cum[q] - cum[k]) * dts[k] : 0.f;
+        }
+        // registers 4j, 4j+1 are row r0, 4j+2, 4j+3 row r0 + 8
+        const int kk = j / 2, r = (j % 2) * 2;
+        hk::split_bf16(mv[0], mv[1], mhi[kk][r], mlo[kk][r]);
+        hk::split_bf16(mv[2], mv[3], mhi[kk][r + 1], mlo[kk][r + 1]);
+      }
+      const float e0 = __expf(cum[hk::acc_row(tid, 0)]);
+      const float e1 = __expf(cum[hk::acc_row(tid, 2)]);
+      if (c > 0) {
+        hk::wgmma_wait<0>();
+        hk::fence_regs(yacc);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) yacc[i] *= ((i >> 1) & 1) ? e1 : e0;
+      }
+      // y += M x, x MN-major (P contiguous)
+      hk::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dx = hk::desc_sw128(Xs + kk * 2048, kBlock, 1024);
+        hk::Wgmma<64>::rs_mn(yacc, mhi[kk], dx, 1);
+        hk::Wgmma<64>::rs_mn(yacc, mlo[kk], dx, 1);
+      }
+      hk::wgmma_commit();
+      hk::wgmma_wait<0>();
+      hk::fence_regs(yacc);
+      bf16* yb = y + ((size_t)row * H + h) * kP;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int q = hk::acc_row(tid, i), p = hk::acc_col(tid, i);
+        *reinterpret_cast<uint32_t*>(yb + (size_t)q * H * kP + p) =
+            hk::pack_bf16(yacc[i], yacc[i + 1]);
+      }
+
+      // (w x)^T as A fragments: row p, column k, w_k = dt_k exp(cum_last -
+      // cum_k); built once M and y are dead, which keeps the N 128
+      // instance within its 168 registers (built beside the M x product,
+      // ptxas spilled 232 bytes a thread)
+      uint32_t whi[4][4], wlo[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int p = 16 * warp + (lane >> 2) + 8 * (r & 1);
+          const int k = 16 * kk + 2 * (lane & 3) + 8 * (r >> 1);
+          const float x0 = __bfloat162float(*reinterpret_cast<const bf16*>(
+              Xs + hk::sw128_offset(k, p, kT)));
+          const float x1 = __bfloat162float(*reinterpret_cast<const bf16*>(
+              Xs + hk::sw128_offset(k + 1, p, kT)));
+          hk::split_bf16(x0 * dts[k] * __expf(c_last - cum[k]),
+                         x1 * dts[k + 1] * __expf(c_last - cum[k + 1]),
+                         whi[kk][r], wlo[kk][r]);
+        }
+      // state = state exp(cum_last) + (w x)^T B, B MN-major (N contiguous)
+      const float decay = __expf(c_last);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) sacc[i] *= decay;
+      hk::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t db = hk::desc_sw128(Bs + kk * 2048, kBlock, 1024);
+        hk::Wgmma<N>::rs_mn(sacc, whi[kk], db, 1);
+        hk::Wgmma<N>::rs_mn(sacc, wlo[kk], db, 1);
+      }
+      hk::wgmma_commit();
+      hk::wgmma_wait<0>();
+      hk::fence_regs(sacc);
+    }
+    __syncwarp();
+    if (lane == 0) hk::mbar_arrive(empty + stage);
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+    if (active && c + 1 < nc) {
+      // stage the state for the next chunk's C . state: hi + lo, K-major
+#pragma unroll
+      for (int i = 0; i < N / 2; i += 2) {
+        const uint32_t off =
+            hk::sw128_offset(hk::acc_row(tid, i), hk::acc_col(tid, i), kP);
+        uint32_t hi, lo;
+        hk::split_bf16(sacc[i], sacc[i + 1], hi, lo);
+        *reinterpret_cast<uint32_t*>(st_hi + off) = hi;
+        *reinterpret_cast<uint32_t*>(st_lo + off) = lo;
+      }
+      hk::fence_proxy_async();
+      hk::named_sync(bar_id, 128);
+    }
+  }
+  if (active) {
+    float* so = state_out + ((size_t)b * H + h) * kP * N;
+#pragma unroll
+    for (int i = 0; i < N / 2; i += 2)
+      *reinterpret_cast<float2*>(so + hk::acc_row(tid, i) * N +
+                                 hk::acc_col(tid, i)) =
+          make_float2(sacc[i], sacc[i + 1]);
+  }
+}
+
+template <int N>
+int launch(const void* x, const void* dt, const void* a, const void* bm,
+           const void* cm, void* y, void* state, void* ws, int b, int S,
+           int H, cudaStream_t stream) {
+  CUtensorMap xm, cmap, bmap;
+  const uint64_t dx[3] = {(uint64_t)kP, (uint64_t)H, (uint64_t)b * S};
+  const uint64_t sx[2] = {(uint64_t)kP * 2, (uint64_t)H * kP * 2};
+  const uint32_t bx[3] = {64, 1, kT};
+  const uint64_t dbc[2] = {(uint64_t)N, (uint64_t)b * S};
+  const uint64_t sbc[1] = {(uint64_t)N * 2};
+  const uint32_t bbc[2] = {64, kT};
+  if (!hk_host::tmap_bf16(&xm, x, 3, dx, sx, bx) ||
+      !hk_host::tmap_bf16(&cmap, cm, 2, dbc, sbc, bbc) ||
+      !hk_host::tmap_bf16(&bmap, bm, 2, dbc, sbc, bbc))
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  auto k1 = ssd_cb_kernel<N>;
+  const int smem1 = 2 * (N / 64) * kBlock + 8 + 1024;
+  cudaError_t err = cudaFuncSetAttribute(
+      k1, cudaFuncAttributeMaxDynamicSharedMemorySize, smem1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k1<<<dim3(S / kT, b), 128, smem1, stream>>>(cmap, bmap,
+                                              static_cast<float4*>(ws), S);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  auto k2 = ssd_tc_kernel<N>;
+  const int smem2 = Shape<N>::kSmemBytes;
+  err = cudaFuncSetAttribute(k2, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem2);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k2<<<dim3((H + 1) / 2, b), 288, smem2, stream>>>(
+      xm, cmap, bmap, static_cast<const float*>(ws),
+      static_cast<const float*>(dt), static_cast<const float*>(a),
+      static_cast<bf16*>(y), static_cast<float*>(state), S, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
 }  // namespace
 
-// dtype of x, B, C and y: 0 = float32, 1 = bfloat16; dt, a and the state
-// are float32.  S must be a multiple of chunk, and chunk of 16.  Returns
-// the cudaError_t of the launch (cudaErrorInvalidValue for a dtype,
-// (head_dim, d_state) pair or chunk the kernel does not take).
+// The CUDA-core instance, for either dtype and every (head_dim, d_state)
+// of the DIMS table.  dtype of x, B, C and y: 0 = float32, 1 = bfloat16;
+// dt, a and the state are float32.  S must be a multiple of chunk, and
+// chunk of 16.  Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a dtype, (head_dim, d_state) pair or chunk
+// the kernel does not take).
 extern "C" int ssd_launch(const void* x, const void* dt, const void* a,
                           const void* b_mat, const void* c_mat, void* y,
                           void* final_state, int dtype, int batch, int seq_len,
@@ -362,11 +752,34 @@ extern "C" int ssd_launch(const void* x, const void* dt, const void* a,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (chunk <= 0 || seq_len % chunk) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
-    return launch_dims<float>(head_dim, d_state, x, dt, a, b_mat, c_mat, y,
-                              final_state, batch, seq_len, n_heads, chunk, s);
+    return fma::launch_dims<float>(head_dim, d_state, x, dt, a, b_mat, c_mat,
+                                   y, final_state, batch, seq_len, n_heads,
+                                   chunk, s);
   if (dtype == 1)
-    return launch_dims<__nv_bfloat16>(head_dim, d_state, x, dt, a, b_mat,
-                                      c_mat, y, final_state, batch, seq_len,
-                                      n_heads, chunk, s);
+    return fma::launch_dims<__nv_bfloat16>(head_dim, d_state, x, dt, a, b_mat,
+                                           c_mat, y, final_state, batch,
+                                           seq_len, n_heads, chunk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The tensor-core instance: bf16 x, B, C and y, head_dim 64, d_state 128
+// or 64, S a multiple of 64 (the chunk the caller names does not change
+// the function).  `workspace` holds batch * seq_len * 64 floats (C B^T of
+// every 64-row chunk).  Launches two kernels on `stream`; returns the
+// first cudaError_t (cudaErrorInvalidValue for a shape it does not take).
+extern "C" int ssd_tc_launch(const void* x, const void* dt, const void* a,
+                             const void* b_mat, const void* c_mat, void* y,
+                             void* final_state, void* workspace, int batch,
+                             int seq_len, int n_heads, int head_dim,
+                             int d_state, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim != tc::kP || seq_len % tc::kT)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (d_state == 128)
+    return tc::launch<128>(x, dt, a, b_mat, c_mat, y, final_state, workspace,
+                           batch, seq_len, n_heads, s);
+  if (d_state == 64)
+    return tc::launch<64>(x, dt, a, b_mat, c_mat, y, final_state, workspace,
+                          batch, seq_len, n_heads, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,9 +4,11 @@ Replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention``.  The kernel is
 bound by operations: ``4 * B * Hq * D`` flops per unmasked (query, key)
 pair, so its least time on an H100 is those flops over 989 TFLOP/s
-(bf16 tensor cores).  The first kernel computes on the CUDA cores in
-f32 and the source file says what that costs.  Its plain PyTorch
-version is ``repro_torch.kernels.ref.flash_attention_ref``;
+(bf16 tensor cores).  The C entry point picks the instance: bf16 at
+D 64, 112, 128 and 256 runs on the tensor cores (wgmma, TMA), every
+other (dtype, D) on the CUDA cores in f32; the source file says what
+bounds each.  Its plain PyTorch version is
+``repro_torch.kernels.ref.flash_attention_ref``;
 :mod:`repro_torch.kernels.ops` picks between the two by device.
 """
 
@@ -19,13 +21,15 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 32, 64, 112, 128, 256)  # the FA_CASEs of flash_attention.cu
 
 
-def flash_attention(q, k, v, *, causal: bool = True,
-                    window: int = 0) -> torch.Tensor:
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    fma: bool = False) -> torch.Tensor:
     """q: (B, Hq, S, D); k, v: (B, Hkv, S, D) with Hq % Hkv == 0, any S.
     Key ``k`` is kept for query ``q`` when ``k <= q`` (if causal) and
     ``q - k < window`` (if ``window > 0``).  Returns (B, Hq, S, D) in
     q's dtype.  Launches the CUDA kernel on the current stream; raises on
-    anything the kernel does not take and on a failed launch."""
+    anything the kernel does not take and on a failed launch.  ``fma``
+    runs the CUDA-core instance whatever the dtype (a yardstick for the
+    tensor-core one; the model never asks for it)."""
     _build.check_operands({"q": q, "k": k, "v": v}, {})
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q must be (B, Hq, S, D) and k/v (B, Hkv, S, D)")
@@ -51,5 +55,6 @@ def flash_attention(q, k, v, *, causal: bool = True,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _build.DTYPE_CODE[q.dtype], b, hq, hkv, s, d, int(bool(causal)),
         int(window), stream,
+        entry="flash_attention_fma_launch" if fma else None,
     )
     return out

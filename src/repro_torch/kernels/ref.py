@@ -16,7 +16,10 @@ Two deliberate differences from the JAX oracles:
   mean of V), and they get there without ``-inf`` arithmetic, so no NaN
   can appear.
 
-``ssd_ref`` and ``rmsnorm_ref`` follow their JAX oracles exactly.
+``ssd_ref`` and ``rmsnorm_ref`` follow their JAX oracles exactly;
+``ssd_chunk_cb_ref`` and ``ssd_chunk_scan_ref`` are the two passes of
+the tensor-core SSD kernel, whose composition computes ``ssd_ref``'s
+function.
 """
 
 from __future__ import annotations
@@ -136,6 +139,56 @@ def ssd_ref(x, dt, a, b_mat, c_mat) -> tuple[torch.Tensor, torch.Tensor]:
             * x[:, t].float()[..., None])
         ys.append(torch.einsum("bhpn,bn->bhp", state, c_mat[:, t].float()))
     y = (torch.stack(ys, dim=1) if ys
+         else x.new_zeros((bsz, 0, h, p), dtype=torch.float32))
+    return y.to(x.dtype), state
+
+
+def ssd_chunk_cb_ref(b_mat, c_mat, chunk: int = 64) -> torch.Tensor:
+    """First pass of the tensor-core SSD: ``C B^T`` of every chunk, once
+    for all heads.  b_mat, c_mat: (B, S, N) with S % chunk == 0 ->
+    (B, S / chunk, chunk, chunk) f32, query rows by key columns."""
+    bsz, s, n = b_mat.shape
+    cq = c_mat.float().reshape(bsz, s // chunk, chunk, n)
+    bq = b_mat.float().reshape(bsz, s // chunk, chunk, n)
+    return torch.einsum("bcqn,bckn->bcqk", cq, bq)
+
+
+def ssd_chunk_scan_ref(x, dt, a, b_mat, c_mat, cb,
+                       chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """Second pass of the tensor-core SSD: the chunks in sequence, each
+    from its ``cb = ssd_chunk_cb_ref(b_mat, c_mat, chunk)`` tile, in f32.
+    Per chunk, with cum the inclusive prefix sum of dt * a:
+    ``y = (cb * exp(cum_q - cum_k) * dt_k, 0 above the diagonal) x
+    + exp(cum_q) C . state`` and ``state = state * exp(cum_last)
+    + sum_k dt_k exp(cum_last - cum_k) x_k (x) B_k``.  Together the two
+    passes compute ``ssd_ref``'s function.  Returns (y (B, S, H, P) in
+    x's dtype, final state (B, H, P, N) f32)."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    nc = s // chunk
+    xq = x.float().reshape(bsz, nc, chunk, h, p)
+    dtq = dt.float().reshape(bsz, nc, chunk, h)
+    bq = b_mat.float().reshape(bsz, nc, chunk, n)
+    cq = c_mat.float().reshape(bsz, nc, chunk, n)
+    iq = torch.arange(chunk, device=x.device)
+    tri = (iq[:, None] >= iq[None, :])[None, :, :, None]    # k <= q
+    state = torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        cum = torch.cumsum(dtq[:, c] * a.float(), dim=1)     # (B, Q, H)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]      # (B, Q, K, H)
+        # the exponent is taken below the diagonal only
+        decay = torch.where(tri, torch.exp(torch.where(tri, diff, 0.0)), 0.0)
+        m = cb[:, c, :, :, None] * decay * dtq[:, c, None, :, :]
+        y = torch.einsum("bqkh,bkhp->bqhp", m, xq[:, c])
+        y = y + torch.exp(cum)[..., None] * torch.einsum(
+            "bqn,bhpn->bqhp", cq[:, c], state)
+        w = dtq[:, c] * torch.exp(cum[:, -1:] - cum)        # (B, K, H)
+        state = (state * torch.exp(cum[:, -1])[:, :, None, None]
+                 + torch.einsum("bkhp,bkn->bhpn", xq[:, c] * w[..., None],
+                                bq[:, c]))
+        ys.append(y)
+    y = (torch.stack(ys, dim=1).reshape(bsz, s, h, p) if ys
          else x.new_zeros((bsz, 0, h, p), dtype=torch.float32))
     return y.to(x.dtype), state
 

@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.kernels import ops
 
 
@@ -103,12 +104,13 @@ class PagedKVManager:
 
     The table is a dense ``(n_slots, max_pages)`` int32 array with -1
     for unallocated entries — the operand the paged attention paths
-    consume.  ``device_table()`` keeps a copy on ``device`` and uploads
-    it again only after allocation changed.
+    consume.  ``device_table()`` keeps a copy on ``device`` (CUDA
+    unless the caller names another: :func:`repro_torch.resolve_device`)
+    and uploads it again only after allocation changed.
     """
 
     def __init__(self, n_slots: int, max_len: int, page_size: int,
-                 n_pages: Optional[int] = None, *, device="cpu"):
+                 n_pages: Optional[int] = None, *, device=None):
         self.page_size = page_size
         self.max_pages = -(-max_len // page_size)
         self.n_slots = n_slots
@@ -117,7 +119,7 @@ class PagedKVManager:
         self.alloc = PageAllocator(n_pages, page_size)
         self.table = np.full((n_slots, self.max_pages), -1, np.int32)
         self._n_pages_of = np.zeros(n_slots, np.int32)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dirty = True
         self._table_dev: Optional[torch.Tensor] = None
 

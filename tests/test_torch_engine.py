@@ -385,7 +385,7 @@ def test_double_free_asserts():
 
 
 def test_kv_manager_ensure_grow_and_release():
-    kv = PagedKVManager(n_slots=2, max_len=32, page_size=8)
+    kv = PagedKVManager(n_slots=2, max_len=32, page_size=8, device="cpu")
     assert kv.max_pages == 4 and kv.n_pages == 8
     assert kv.ensure(0, 1) and len(kv.pages_of(0)) == 1
     assert kv.ensure(0, 8) and len(kv.pages_of(0)) == 1
@@ -402,7 +402,7 @@ def test_kv_manager_ensure_grow_and_release():
 
 
 def test_kv_manager_tables_disjoint_and_device_table():
-    kv = PagedKVManager(n_slots=4, max_len=16, page_size=4)
+    kv = PagedKVManager(n_slots=4, max_len=16, page_size=4, device="cpu")
     for s in range(4):
         assert kv.ensure(s, 16)
     used = [p for s in range(4) for p in kv.pages_of(s)]
@@ -412,6 +412,19 @@ def test_kv_manager_tables_disjoint_and_device_table():
     assert kv.device_table() is t          # unchanged table: no re-upload
     kv.release(2)
     assert kv.device_table() is not t
+
+
+def test_kv_manager_defaults_to_cuda_and_refuses_without_a_card():
+    """Like every entry point of the port, the page table lives on CUDA
+    unless the caller names the CPU: without a card, no device raises
+    instead of quietly holding the table on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PagedKVManager(n_slots=2, max_len=32, page_size=8)
+    kv = PagedKVManager(n_slots=2, max_len=32, page_size=8, device="cpu")
+    assert kv.device == torch.device("cpu")
+    assert kv.ensure(0, 9) and kv.device_table().device.type == "cpu"
 
 
 # ---------------------------------------------------------------------------

@@ -39,7 +39,7 @@ def _paged_fixture(seed, b, h, s, d, ps, *, zero_row=False):
     """A contiguous cache and its paged twin laid out by the port's
     PagedKVManager (numpy; mirrors tests/test_paged_kv.py)."""
     rng = np.random.default_rng(seed)
-    kv = PagedKVManager(n_slots=b, max_len=s, page_size=ps)
+    kv = PagedKVManager(n_slots=b, max_len=s, page_size=ps, device="cpu")
     kv_len = rng.integers(1, s + 1, size=b).astype(np.int32)
     if zero_row:
         kv_len[0] = 0
@@ -316,6 +316,49 @@ def test_ssd_scan_matches_jax(case):
         _close(got[1], seq[1], 2e-3)
 
 
+@pytest.mark.parametrize("s,h,p,n,chunk", [
+    (64, 3, 8, 16, 16),                # the smoke configs' SSM
+    (128, 2, 16, 32, 32), (256, 4, 16, 32, 64),
+    (256, 4, 32, 64, 128),             # tests/test_kernels.py's sweep
+])
+def test_ssd_tensor_core_passes_match_jax(s, h, p, n, chunk):
+    """The tensor-core SSD's two passes, written plainly (C B^T once per
+    64-row chunk for all heads, then the chunks in sequence), composed
+    and held against the JAX package's SSD kernel (Pallas, interpret
+    mode, at its own chunk) and its sequential oracle: f32, pad rows
+    (dt = 0 past each row's length), rtol = atol = 1e-4."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.kernels import ref as jref
+    from repro.kernels.ssd import ssd as pl_ssd
+    args = _ssd_inputs(s + n, 2, s, h, p, n, lens=[s, s // 2 + 3])
+    x, dt, a, bm, cm = _t(*args)
+    cb = ref.ssd_chunk_cb_ref(bm, cm, 64)
+    assert cb.shape == (2, s // 64, 64, 64)
+    y, state = ref.ssd_chunk_scan_ref(x, dt, a, bm, cm, cb, chunk=64)
+    jargs = list(map(jnp.asarray, args))
+    for y_j, state_j in (pl_ssd(*jargs, chunk=chunk, interpret=True),
+                         jref.ssd_ref(*jargs)):
+        _close(y, y_j, 1e-4)
+        _close(state, state_j, 1e-4)
+
+
+def test_ssd_tensor_core_gate():
+    """bf16 at mamba2's and zamba2's (head_dim, d_state) with S a
+    multiple of 64 takes the tensor-core instance; f32, the smoke and
+    test shapes and a ragged S take the CUDA-core one."""
+    def x(dtype, s, p):
+        return torch.zeros(1, s, 2, p, dtype=dtype)
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert ssd_mod.uses_tensor_cores(x(bf16, 512, 64), 128)
+    assert ssd_mod.uses_tensor_cores(x(bf16, 64, 64), 64)
+    assert not ssd_mod.uses_tensor_cores(x(f32, 512, 64), 128)
+    assert not ssd_mod.uses_tensor_cores(x(bf16, 96, 64), 128)
+    assert not ssd_mod.uses_tensor_cores(x(bf16, 64, 8), 16)
+    assert not ssd_mod.uses_tensor_cores(x(bf16, 256, 32), 64)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("rows,d,br", [(128, 64, 32), (256, 512, 256),
                                        (64, 128, 64)])
@@ -569,6 +612,39 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, b, hq, hkv, s, d,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (1, 8, 4, 2048, 256, True, 1024),   # gemma3's local layer
+    (2, 8, 4, 1100, 256, True, 0),      # gemma3's global layer, ragged S
+    (2, 8, 4, 40, 256, True, 64),       # one ragged tile
+    (1, 4, 4, 1100, 128, True, 64),     # qwen7b's heads, a narrow window
+    (2, 4, 4, 40, 128, False, 0),
+    (1, 4, 2, 1100, 112, False, 0),     # zamba2's head dim
+    (1, 4, 4, 2048, 112, True, 1024),
+    (2, 4, 4, 40, 112, True, 0),
+    (1, 8, 4, 300, 64, True, 0),
+])
+def test_flash_attention_tensor_core_kernel_matches_plain(
+        cuda, b, hq, hkv, s, d, causal, window):
+    """The bf16 tensor-core instance (wgmma, TMA) at the head dims it
+    serves: S not a multiple of any tile (40, 1100), a window that cuts
+    a tile (1024 at S 2048, and 64), bidirectional, GQA 8/4 and MHA;
+    rtol = atol = 2e-2."""
+    q, k, v = _card_attn(cuda, s + d + window, b, hq, hkv, s, d,
+                         torch.bfloat16)
+    got = flash_mod.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    # the CUDA-core instance computes the same function
+    old = flash_mod.flash_attention(q, k, v, causal=causal, window=window,
+                                    fma=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(old.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hq,hkv,s,d", [
     (3, 4, 2, 24, 16), (4, 8, 4, 600, 256), (3, 4, 4, 513, 128),
@@ -625,6 +701,32 @@ def test_ssd_kernel_matches_plain(cuda, dtype, b, s, h, p, n, chunk):
     _, at_end = ref.ssd_ref(x[1:2, :n1], dt[1:2, :n1], a, bm[1:2, :n1],
                             cm[1:2, :n1])
     torch.testing.assert_close(state[1:2], at_end, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,n", [(8, 128), (7, 64)])   # mamba2, zamba2
+def test_ssd_tensor_core_kernel_matches_plain(cuda, h, n):
+    """The bf16 tensor-core instance at mamba2's and zamba2's head_dim 64,
+    d_state 128 / 64 and chunk 256 (an odd head count too), rows of
+    1024, 700 and 37 tokens (dt = 0 past them): y and the final state
+    against the sequential recurrence, rtol = atol = 2e-2, and the 37-
+    token row's state equal to its state at its true end."""
+    b, s, p, chunk = 3, 1024, 64, 256
+    lens = [1024, 700, 37]
+    x, dt, a, bm, cm = _ssd_inputs(h + n, b, s, h, p, n, lens=lens)
+    x, bm, cm = (torch.as_tensor(v).to(cuda, torch.bfloat16)
+                 for v in (x, bm, cm))
+    dt, a = (torch.as_tensor(v).to(cuda) for v in (dt, a))
+    assert ssd_mod.uses_tensor_cores(x, n)
+    y, state = ssd_mod.ssd(x, dt, a, bm, cm, chunk=chunk)
+    y_want, state_want = ref.ssd_ref(x, dt, a, bm, cm)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), y_want.float(), rtol=2e-2,
+                               atol=2e-2)
+    torch.testing.assert_close(state, state_want, rtol=2e-2, atol=2e-2)
+    _, at_end = ref.ssd_ref(x[2:, :37], dt[2:, :37], a, bm[2:, :37],
+                            cm[2:, :37])
+    torch.testing.assert_close(state[2:], at_end, rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.cuda

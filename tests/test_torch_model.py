@@ -223,7 +223,7 @@ def _run_both(ps, chunks, n_decode):
     decode steps; return the per-step logits of each."""
     b, max_len = 3, 32
     rng = np.random.default_rng(ps)
-    kv = PagedKVManager(b, max_len, ps)
+    kv = PagedKVManager(b, max_len, ps, device="cpu")
     jc = JMODEL.init_paged_cache(b, max_len, ps)
     model = _port_model()
     tc = model.init_paged_cache(b, max_len, ps)
@@ -284,7 +284,7 @@ def test_decode_block_matches_jax_with_mid_block_stops():
                for n in (9, 5)]
 
     def fresh():
-        kv = PagedKVManager(b, max_len, ps)
+        kv = PagedKVManager(b, max_len, ps, device="cpu")
         jc = JMODEL.init_paged_cache(b, max_len, ps)
         tc = model.init_paged_cache(b, max_len, ps)
         tokens = np.zeros((b, 9), np.int32)
@@ -531,7 +531,7 @@ def test_ssm_kernel_gate_mirrors_jax_on_mamba2(monkeypatch):
     assert len(calls) == 2                       # S = 16 = chunk: each layer
     model.prefill(toks[:, :12], torch.tensor([12, 5], dtype=torch.int32))
     model.decode_step(caches, toks[:, 0], lens)
-    kv = PagedKVManager(2, 32, 4)
+    kv = PagedKVManager(2, 32, 4, device="cpu")
     model.chunk_step(model.init_paged_cache(2, 32, 4), torch.as_tensor(
         kv.table), toks, torch.zeros(2, dtype=torch.int32), lens)
     assert len(calls) == 2
@@ -557,7 +557,7 @@ def test_ssm_chunked_prefill_matches_monolithic_and_jax(arch, chunk):
     lens = np.array([s, s, 0], np.int32)          # row 2 idles
     want, _ = model.prefill(torch.as_tensor(toks[:2]),
                             torch.as_tensor(lens[:2]), cache_len=max_len)
-    kv = PagedKVManager(b, max_len, ps)
+    kv = PagedKVManager(b, max_len, ps, device="cpu")
     for i in range(2):
         assert kv.ensure(i, s)
     jc = jm.init_paged_cache(b, max_len, ps, kv.n_pages)
