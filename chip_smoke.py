@@ -11,7 +11,8 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
    then ``tensor_cores``: for the flash-attention and SSD libraries,
    ptxas's registers and spills of each tensor-core kernel and the
    HGMMA (wgmma) instructions ``cuobjdump -sass`` finds (none, or no
-   cuobjdump, fails the run).
+   cuobjdump, fails the run); then ``decode_ring``: ptxas's registers
+   and spills of each instance of the contiguous decode kernel's ring.
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card (``rtol = atol =`` 2e-5 in f32 with TF32 off, 2e-2 in bf16, the
    gather exactly, SSD 2e-3 in f32 as tests/test_kernels.py holds it)
@@ -23,7 +24,11 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
    over back-to-back calls) beside its bound, its plain version and a
    PyTorch library call that computes the same function, where one
    exists (none computes SSD); flash attention and SSD also beside
-   their CUDA-core instances on the same bf16 inputs (``fma_ms``).
+   their CUDA-core instances on the same bf16 inputs (``fma_ms``), the
+   contiguous decode kernel beside the split kernel it replaced
+   (``legacy_ms``, in turns) at gemma3's, qwen7b's, zamba2's and a GQA-5
+   group's (40 / 8 heads) bf16 shapes, with chunks of 128 and 256
+   positions at gemma3's (``split_probe_ms``).
 3. ``serve``   — qwen7b at full width in bf16 (weights drawn on the card
    from a seeded generator) serving 16 Table-1 requests through the
    paged engine; every request must finish with its ``l_out`` tokens
@@ -292,10 +297,35 @@ def kernels_phase(torch, dev):
             "rmsnorm": norm}
 
 
+def ptxas_report(log: str, wanted) -> tuple[dict, list]:
+    """What ptxas said (the -Xptxas -v build log) of each kernel whose
+    mangled name ``wanted`` maps to a key (None: skipped): registers,
+    stack and spill bytes; and any C75xx performance note."""
+    ptxas: dict[str, dict] = {}
+    notes = []
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = wanted(m.group(1))
+            if cur:
+                ptxas[cur] = {}
+        elif "C75" in line:
+            notes.append(line.strip())
+        elif cur:
+            for key, pat in (("registers", r"Used (\d+) registers"),
+                             ("stack_bytes", r"(\d+) bytes stack frame"),
+                             ("spill_stores", r"(\d+) bytes spill stores"),
+                             ("spill_loads", r"(\d+) bytes spill loads")):
+                m = re.search(pat, line)
+                if m:
+                    ptxas[cur][key] = int(m.group(1))
+    return ptxas, notes
+
+
 def tensor_core_report(_build) -> dict:
     """For each redesigned library (flash attention, SSD): what ptxas
-    said of each tensor-core kernel (registers, spills, stack and any
-    C75xx performance note, from the -Xptxas -v build) and the HGMMA
+    said of each tensor-core kernel (``ptxas_report``) and the HGMMA
     (wgmma) instructions per function in ``cuobjdump -sass``.  Fails if
     cuobjdump is missing from the toolkit or a library holds no HGMMA."""
     cuobjdump = _build.cuda_tool("cuobjdump")
@@ -314,30 +344,28 @@ def tensor_core_report(_build) -> dict:
                 hgmma[fn] = hgmma.get(fn, 0) + 1
         check(sum(hgmma.values()) > 0,
               f"the {name} library holds no HGMMA instruction")
-        ptxas: dict[str, dict] = {}
-        notes = []
-        cur = None
-        for line in _build.build_log.get(name, "").splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                cur = m.group(1) if re.search(r"_(tc|cb)_kernel", m.group(1)) \
-                    else None
-                if cur:
-                    ptxas[cur] = {}
-            elif "C75" in line:
-                notes.append(line.strip())
-            elif cur:
-                for key, pat in (("registers", r"Used (\d+) registers"),
-                                 ("stack_bytes", r"(\d+) bytes stack frame"),
-                                 ("spill_stores", r"(\d+) bytes spill stores"),
-                                 ("spill_loads", r"(\d+) bytes spill loads")):
-                    m = re.search(pat, line)
-                    if m:
-                        ptxas[cur][key] = int(m.group(1))
+        ptxas, notes = ptxas_report(
+            _build.build_log.get(name, ""),
+            lambda fn: fn if re.search(r"_(tc|cb)_kernel", fn) else None)
         out[name] = {"hgmma": sum(hgmma.values()), "hgmma_by_function": hgmma,
                      "ptxas": ptxas or "built earlier: no ptxas report",
                      "ptxas_notes": notes}
     return out
+
+
+def decode_ring_report(_build) -> dict:
+    """ptxas's report of each instance of the contiguous decode kernel's
+    ring (dtype, head dim D, query heads per block NG)."""
+    def instance(fn):
+        m = re.search(r"decode_ring_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E",
+                      fn)
+        return m and (f"{'f32' if m.group(1) == 'f' else 'bf16'} "
+                      f"D{m.group(2)} NG{m.group(3)}")
+
+    ptxas, notes = ptxas_report(_build.build_log.get("decode_attention", ""),
+                                instance)
+    return {"ptxas": ptxas or "built earlier: no ptxas report",
+            "ptxas_notes": notes}
 
 
 def compare(torch, got, want, tol, name):
@@ -374,25 +402,32 @@ def device_ms(torch, fn, iters: int = 5) -> float:
     on the card, from ``torch.profiler``'s events over ``iters`` calls,
     summed and divided by ``iters``.  Unlike ``cuda_ms`` it leaves out
     the host's gaps between launches, which dominate calls of a few
-    tens of microseconds.  The tracer now and then hands back no device
-    event for a whole window (seen for library calls that record fine in
-    other runs), so a window without one is traced again, up to three
-    times, before the run fails."""
+    tens of microseconds.  The tracer now and then hands back a window
+    with some or all of its device events missing (seen for library
+    calls that record fine in other runs, and once for two of five
+    flash-attention calls), and losing events only ever shortens the
+    sum: so two windows are traced and the one with more device events
+    is kept, and a third is traced if neither has any before the run
+    fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    best_n, best_us = 0, 0.0
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA)
-        if us > 0:
-            return us / 1e3 / iters
-    check(False, "the profiler recorded no device time in three windows")
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if len(events) > best_n:
+            best_n = len(events)
+            best_us = sum(e.time_range.elapsed_us() for e in events)
+        if attempt >= 1 and best_n > 0:
+            break
+    check(best_n > 0, "the profiler recorded no device time in three windows")
+    return best_us / 1e3 / iters
 
 
 def flash_pairs(s: int, causal: bool, window: int) -> int:
@@ -472,15 +507,30 @@ def flash_kernel_rows(torch, dev):
     return {**cases["gemma3_local_bf16"], "cases": cases}
 
 
+def ab_ms(torch, a, b, timer=None) -> tuple[float, float]:
+    """Times of two functions measured in turns a, b, b, a on one card
+    (``device_ms`` each, or ``timer``): the mean of each function's two."""
+    timer = timer or (lambda fn: device_ms(torch, fn))
+    a1, b1, b2, a2 = (timer(f) for f in (a, b, b, a))
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
 def decode_kernel_rows(torch, dev):
     """Contiguous decode attention against its plain version at gemma3's
     decode shape (8 slots of up to 2048 tokens, GQA 8/4, D 256, one
-    ``kv_len == 0`` row) and qwen7b's MHA shape; timed at gemma3's."""
+    ``kv_len == 0`` row), qwen7b's MHA shape, zamba2's D 112 and a GQA-5
+    group (40 / 8 heads at D 128, as in qwen2.5-14b); timed at each bf16
+    shape beside the split kernel it replaced
+    (``legacy_ms``, and ``legacy_event_ms`` beside ``event_ms``, each in
+    turns on the same inputs), and at gemma3's with chunks of 128 and 256
+    positions (``split_probe_ms``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import decode_attention, ref
 
     bf16, f32 = torch.bfloat16, torch.float32
+    timed = ("gemma3_bf16_kvlen0", "qwen7b_mha_bf16",
+             "zamba2_d112_bf16_kvlen0", "qwen_gqa5_bf16")
     cases = {}
     for name, (b, hq, hkv, s, d), dt, tol in (
         ("gemma3_bf16_kvlen0", (8, 8, 4, 2048, 256), bf16, 2e-2),
@@ -488,6 +538,7 @@ def decode_kernel_rows(torch, dev):
         ("qwen7b_mha_bf16", (8, 32, 32, 2048, 128), bf16, 2e-2),
         ("zamba2_d112_bf16_kvlen0", (8, 32, 32, 2048, 112), bf16, 2e-2),
         ("zamba2_d112_f32_kvlen0", (8, 32, 32, 2048, 112), f32, 2e-5),
+        ("qwen_gqa5_bf16", (8, 40, 8, 2048, 128), bf16, 2e-2),
     ):
         g = torch.Generator(device=dev).manual_seed(s + d + hq)
         q = torch.randn(b, hq, d, generator=g, device=dev).to(dt)
@@ -502,24 +553,40 @@ def decode_kernel_rows(torch, dev):
         cases[name] = compare(torch, got, want, tol, f"decode {name}")
         if "kvlen0" in name:
             check(bool((got[0] == 0).all()), f"{name}: kv_len 0 row != 0")
-        if name not in ("gemma3_bf16_kvlen0", "zamba2_d112_bf16_kvlen0"):
+        if name not in timed:
             continue
+
+        def kernel(**kw):
+            return lambda: decode_attention.decode_attention(q, k, v, kv_len,
+                                                             **kw)
+
+        old = decode_attention.decode_attention(q, k, v, kv_len, legacy=True)
+        legacy = compare(torch, old, want, tol, f"decode {name} legacy")
         mask = (torch.arange(s, device=dev)[None, :]
                 < kv_len[:, None].long())[:, None, None, :]
         n_bytes = (int(lens.sum()) * hkv * d * 2 * q.element_size()
                    + 2 * q.numel() * q.element_size() + 4 * b)
         flops = 4 * int(lens.sum()) * hq * d
+        ms, legacy_ms = ab_ms(torch, kernel(), kernel(legacy=True))
+        event_ms, legacy_event_ms = ab_ms(
+            torch, kernel(), kernel(legacy=True),
+            timer=lambda fn: cuda_ms(torch, fn, 50))
         cases[name].update(
-            **timings(
-                torch,
-                lambda: decode_attention.decode_attention(q, k, v, kv_len),
-                lambda: ref.decode_attention_ref(q, k, v, kv_len),
-                lambda: F.scaled_dot_product_attention(
-                    q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=True),
-                50),
+            ms=ms, legacy_ms=legacy_ms,
+            legacy_max_abs_err=legacy["max_abs_err"],
+            plain_ms=device_ms(torch, lambda: ref.decode_attention_ref(
+                q, k, v, kv_len)),
+            library_ms=device_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], k, v, attn_mask=mask, enable_gqa=True)),
+            event_ms=event_ms, legacy_event_ms=legacy_event_ms,
             **bound_row(n_bytes, flops, BF16_FLOPS_PER_S),
             shape={"B": b, "Hq": hq, "Hkv": hkv, "S": s, "D": d,
                    "sum_kv_len": int(lens.sum()), "dtype": "bfloat16"})
+        if name == "gemma3_bf16_kvlen0":
+            t128, t256 = ab_ms(torch, kernel(split_tokens=128),
+                               kernel(split_tokens=256))
+            cases[name]["split_probe_ms"] = {"128": t128, "256": t256}
+        del old, mask
     torch.cuda.empty_cache()
     return {**cases["gemma3_bf16_kvlen0"], "cases": cases}
 
@@ -1198,6 +1265,7 @@ def main() -> int:
           "nvidia_smi": smi, "build_s": build_s,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     emit({"phase": "tensor_cores", **tensor_core_report(_build)})
+    emit({"phase": "decode_ring", **decode_ring_report(_build)})
 
     def load(name: str, dtype=torch.bfloat16):
         t0 = time.perf_counter()

@@ -58,7 +58,7 @@ SIGNATURES = {
     ),
     "decode_attention": (
         "decode_attention_launch",
-        [_VOID_P] * 6 + [_INT] * 7 + [_VOID_P],
+        [_VOID_P] * 6 + [_INT] * 9 + [_VOID_P],
     ),
     "ssd": (
         "ssd_launch",
@@ -76,6 +76,9 @@ ENTRIES = {
                                    SIGNATURES["flash_attention"][1]),
     # the tensor-core SSD (bf16), with its C B^T workspace
     "ssd_tc_launch": ("ssd", [_VOID_P] * 8 + [_INT] * 5 + [_VOID_P]),
+    # the split decode kernel, one block per query head (a yardstick)
+    "decode_attention_split_launch": ("decode_attention",
+                                      [_VOID_P] * 6 + [_INT] * 7 + [_VOID_P]),
 }
 # dtype code the entry points take
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

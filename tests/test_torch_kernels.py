@@ -469,6 +469,39 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         rmsnorm_mod.rmsnorm(torch.zeros(2, 8), torch.zeros(8))
 
 
+@pytest.mark.parametrize("shape,itemsize,want", [
+    # gemma3-4b: GQA 2, D 256; a stage of 32 tokens of K (16 KB) and V
+    ((8, 8, 4, 2048, 256), 2, (16, 2, 1, 32, 32768)),
+    ((8, 8, 4, 2048, 256), 4, (16, 2, 1, 16, 32768)),    # f32: 16 KB of K
+    ((8, 32, 32, 2048, 128), 2, (16, 1, 1, 32, 16384)),  # qwen7b, MHA
+    ((8, 32, 32, 2048, 112), 2, (16, 1, 1, 32, 14336)),  # zamba2, D 112
+    ((8, 40, 8, 2048, 128), 2, (16, 2, 3, 32, 16384)),   # GQA 5: 2 + 2 + 1
+    ((8, 64, 8, 2048, 128), 2, (16, 2, 4, 32, 16384)),   # GQA 8
+    ((2, 18, 1, 600, 64), 2, (5, 2, 9, 32, 8192)),       # 18 heads, 1 KV
+    ((4, 8, 4, 600, 256), 2, (5, 2, 1, 32, 32768)),      # S not a multiple
+    ((3, 4, 2, 24, 16), 4, (1, 2, 1, 24, 3072)),         # one short chunk
+])
+def test_decode_plan(shape, itemsize, want):
+    """The contiguous kernel's launch from shapes alone: chunks of 128
+    positions, a group's heads in blocks of two (one for MHA) that cover
+    every head once, stages of 32 tokens (at most 16 KB of K) within a
+    chunk, and the (B, Hq, n_split, D + 2) workspace the merge reads."""
+    b, hq, hkv, s, d = shape
+    plan = decode_attention.decode_plan(b, hq, hkv, s, d, itemsize)
+    assert (plan.n_split, plan.heads_per_block, plan.head_blocks,
+            plan.stage_tokens, plan.stage_bytes) == want
+    assert plan.workspace == (b, hq, plan.n_split, d + 2)
+    group = hq // hkv
+    assert (plan.head_blocks - 1) * plan.heads_per_block < group
+    assert group <= plan.head_blocks * plan.heads_per_block
+    chunk = -(-s // plan.n_split)
+    assert plan.n_split * chunk >= s and plan.stage_tokens <= chunk
+    assert plan.stage_bytes % 16 == 0   # whole 16-byte units of bulk copy
+    # chunks of 256 positions halve the split of a long cache
+    long = decode_attention.decode_plan(b, hq, hkv, s, d, itemsize, 256)
+    assert long.n_split == -(-s // 256)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels vs their plain versions (card only)
 # ---------------------------------------------------------------------------
@@ -644,28 +677,67 @@ def test_flash_attention_tensor_core_kernel_matches_plain(
                                atol=2e-2)
 
 
+def _decode_lens(b, hq, hkv, s, d, itemsize):
+    """kv_len rows 0, 1, S, one past the ring kernel's first stage and
+    one past its first chunk (each at most S), then random ones."""
+    plan = decode_attention.decode_plan(b, hq, hkv, s, d, itemsize)
+    chunk = -(-s // plan.n_split)
+    edge = [0, 1, s, plan.stage_tokens + 1, chunk + 1]
+    rand = np.random.default_rng(s).integers(1, s + 1, size=b)
+    return np.minimum(np.concatenate([edge, rand])[:b], s).astype(np.int32)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("b,hq,hkv,s,d", [
-    (3, 4, 2, 24, 16), (4, 8, 4, 600, 256), (3, 4, 4, 513, 128),
-    (2, 6, 2, 40, 64), (3, 4, 4, 300, 112),
+    (5, 4, 2, 24, 16), (5, 8, 4, 600, 256), (5, 4, 4, 513, 128),
+    (5, 6, 2, 40, 64), (5, 4, 4, 300, 112),
+    (6, 40, 8, 300, 128),   # GQA 5 (qwen2.5-14b, qwen32b): blocks 2, 2, 1
+    (6, 64, 8, 520, 128),   # GQA 8 (llama70b)
+    (6, 18, 1, 600, 64),    # a group of 18 heads over one KV head
+    (6, 8, 4, 2048, 256),   # gemma3's decode shape
 ])
 def test_decode_attention_kernel_matches_plain(cuda, dtype, b, hq, hkv, s, d):
-    """Any S (split over blocks of 256 positions), GQA, and a kv_len == 0
-    row that must come back as zeros."""
+    """Any S (not a multiple of the split), GQA groups of 1 to 18 heads,
+    rows of kv_len 1, S, one past a stage and one past a chunk, and a
+    kv_len == 0 row that must come back as zeros."""
     dt = getattr(torch, dtype)
     q, k, v = _card_attn(cuda, s, b, hq, hkv, s, d, dt)
     q = q[:, :, 0].contiguous()
-    kv_len = torch.as_tensor(
-        np.random.default_rng(s).integers(1, s + 1, size=b).astype(np.int32),
-        device=cuda)
-    kv_len[0] = 0
+    kv_len = torch.as_tensor(_decode_lens(b, hq, hkv, s, d, q.element_size()),
+                             device=cuda)
     got = decode_attention.decode_attention(q, k, v, kv_len)
     want = ref.decode_attention_ref(q, k, v, kv_len)
     torch.cuda.synchronize()
     tol = TOL if dt == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert (got[0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,s,d", [
+    (5, 8, 4, 600, 256), (5, 40, 8, 300, 128), (5, 4, 4, 300, 112),
+])
+def test_decode_attention_legacy_kernel_matches_plain(cuda, dtype, b, hq,
+                                                      hkv, s, d):
+    """The split kernel kept as a yardstick (``legacy=True``) still
+    computes the same function, and ring chunks of 256 positions too."""
+    dt = getattr(torch, dtype)
+    q, k, v = _card_attn(cuda, s + 1, b, hq, hkv, s, d, dt)
+    q = q[:, :, 0].contiguous()
+    kv_len = torch.as_tensor(_decode_lens(b, hq, hkv, s, d, q.element_size()),
+                             device=cuda)
+    want = ref.decode_attention_ref(q, k, v, kv_len)
+    old = decode_attention.decode_attention(q, k, v, kv_len, legacy=True)
+    long = decode_attention.decode_attention(q, k, v, kv_len,
+                                             split_tokens=256)
+    torch.cuda.synchronize()
+    tol = TOL if dt == torch.float32 else 2e-2
+    for got in (old, long):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        assert (got[0] == 0).all()
 
 
 SSD_CARD_SHAPES = [  # (b, s, h, p, n, chunk)
