@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
-``build/kernels/``), then runs eight phases, each printing a JSON line
+``build/kernels/``), then runs ten phases, each printing a JSON line
 (``hybrid`` a second one for its hand-off, ``parity`` one per model):
 
 1. ``device``  — the card, its power limit and the kernel build time;
@@ -37,26 +37,47 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 4. ``pd``      — one request prefilled on engine A, exported, evicted and
    imported into engine B: tokens identical to the colocated run, the
    payload size as predicted, the page-gather kernel launched.
-5. ``slot``    — gemma3-4b at full width in bf16 (random weights from a
+5. ``cluster`` — the port's ``Cluster(backend="engine")`` on full-width
+   qwen7b in bf16 (seed weights drawn on the card, offloaded to the
+   host and checkpointed under ``build/weights/``, then dropped): 2
+   colocated replicas provisioned from the host copy, the HyperFlexis
+   policy, the Scaler on (at most 3 replicas, d2d weights) and the
+   H100's latency constants, serving 24 Table-1 requests with Poisson
+   arrivals (4 req/s).  First each transport provisions the whole tree
+   once and is timed (d2d from replica 0 — twice, the second time into
+   the blocks the first freed —, cpu, disk), its copy equal to replica
+   0's bit for bit, and the d2d copy decodes a prompt alone to its
+   donor's tokens; these probes report to no TLManager, so the Scaler
+   starts the run as a deployment would.  Every request must finish
+   with its ``l_out`` tokens, the paged decode kernel run 32 times per
+   C == 1 pass summed over the replicas, no page gather run, the
+   replicas' weights share no storage and the peak memory stay under
+   75 GB.  TTFT, TPOT and attainment are read on the cluster's virtual
+   clock, which overlaps the replicas' measured steps as if each had a
+   card; ``makespan_over_wall`` says how far it ran ahead of this card.
+6. ``cluster_pd`` — the same traffic on one prefill and one decode
+   replica: every request finishes, the page gather runs twice per
+   hand-off (K and V pools), the prefill replica runs no C == 1 pass.
+7. ``slot``    — gemma3-4b at full width in bf16 (random weights from a
    seed) serving 16 requests on the slot plane, which the engine picks
    by itself for its sliding-window layers: 12 Table-1 requests and 4
    wikisql prompts longer than the 1024-token window.  Every request
    must finish; flash attention must have run 34 times per prefill
    dispatch and the contiguous decode-attention kernel 5 times (the
    global layers) per C == 1 forward pass.
-6. ``mamba``   — mamba2-2.7b at full width in bf16 (random weights from
+8. ``mamba``   — mamba2-2.7b at full width in bf16 (random weights from
    a seed) serving the ``serve`` phase's 16 requests on the slot plane
    (``paged=False``): every request must finish, the SSD kernel must
    have run 64 times per prefill dispatch whose padded length is a
    multiple of the 256-token chunk, and no attention kernel at all.
-7. ``hybrid``  — zamba2-7b at full width in bf16 serving 8 of those
+9. ``hybrid``  — zamba2-7b at full width in bf16 serving 8 of those
    requests on its default, paged plane: every request must finish and
    the paged decode kernel (head dim 112) run 13 times, once per shared
    attention invocation, per C == 1 pass; then a P/D hand-off
    (``hybrid_pd``, the ``pd`` checks) to an engine with pages of 32
    whose payload carries 68 layers of SSM/conv slot rows and 13 of
    pages.
-8. ``parity``  — f32 with TF32 off, kernel route against plain route on
+10. ``parity`` — f32 with TF32 off, kernel route against plain route on
    the same weights: a 2-layer full-width qwen7b's paged decode logits,
    a 13-layer full-width gemma3 (two local:global groups and a tail)
    prefilling an 1100-token prompt and decoding 8 tokens (logits within
@@ -113,6 +134,14 @@ MAMBA_ENGINE = dict(SLOT_ENGINE, paged=False)  # mamba2 asks for the slot plane
 N_HYBRID = 8                   # hybrid phase: the first 8 Table-1 requests
 HYBRID_PD_PAGE_SIZE = 32       # the P/D destination's pages (source: 16)
 SSM_PARITY_L_IN, SSM_PARITY_TOL = 1024, 1e-3
+# cluster phases: 512 pages of KV per replica keep three full-width
+# qwen7b replicas and one timed copy under PEAK_LIMIT_BYTES
+CLUSTER_ENGINE = dict(ENGINE, n_pages=512)
+CLUSTER_QPS, CLUSTER_N_PER_TASK = 4, 6     # 24 Table-1 requests, Poisson
+PEAK_LIMIT_BYTES = 75e9
+ALONE_ENGINE = dict(n_slots=1, max_len=256, page_size=16, chunk_size=256,
+                    decode_block=8)
+TRANSPORT_L_IN, TRANSPORT_L_OUT = 128, 16
 
 
 def emit(obj) -> None:
@@ -903,7 +932,222 @@ def pd_phase(torch, dev, model, phase: str = "pd", dst_engine=ENGINE):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: slot plane, gemma3-4b
+# phases 5 and 6: the port's Cluster on qwen7b, colocated and P/D
+# ---------------------------------------------------------------------------
+
+
+def alone_tokens(model, prompt, l_out: int) -> list:
+    """Greedy tokens of ``prompt`` served alone by a small engine of its
+    own over ``model`` (a detached profiler: nothing feeds the cluster's
+    fit)."""
+    from repro_torch.core.latency_model import FittedLatencyModel
+    from repro_torch.core.request import Request
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    engine = InferenceEngine(model, EngineConfig(**ALONE_ENGINE),
+                             profiler=FittedLatencyModel())
+    r = Request.from_prompt(0, prompt, l_out)
+    engine.submit(r)
+    engine.run_until_done()
+    check(len(r.generated) == l_out, "a lone request fell short")
+    return list(r.generated)
+
+
+def storages(model) -> set:
+    return {p.untyped_storage().data_ptr() for p in model.parameters()}
+
+
+def time_transports(torch, cluster) -> dict:
+    """Provision the whole tree once per Table-2 transport (d2d from
+    replica 0 — twice —, cpu from the host offload, disk from the
+    checkpoint), each copy checked bit for bit against replica 0's and
+    released after it is timed; the d2d copy must also decode a prompt
+    alone to the donor's tokens.  The probes go through a shallow copy of
+    the cluster's WeightManager (the same host copy and checkpoint) that
+    reports to no TLManager and owns only replica 0's weights: the timed
+    run's Scaler then starts from what a deployment knows, the H100
+    guesses and the initial replicas' provisions, not from these probes."""
+    import copy
+
+    from repro_torch.serving.cluster import replica_model
+
+    donor = cluster.workers[0].engine.model
+    ref = cluster.weights.params_of(0)
+    wm = copy.copy(cluster.weights)
+    wm.tl, wm._owned = None, {}
+    wm.adopt(0, ref)
+    prompt = np.random.default_rng(SEED + 2).integers(
+        0, donor.cfg.vocab_size, size=TRANSPORT_L_IN).astype(np.int32)
+    out = {"gb": wm.nbytes / 1e9}
+    for i, strategy in enumerate(("d2d", "cpu", "disk")):
+        params, secs = wm.provision(1000 + i, strategy,
+                                    donor=0 if strategy == "d2d" else None)
+        check(all(torch.equal(params[k], t) for k, t in ref.items()),
+              f"the {strategy} copy differs from replica 0's weights")
+        row = {"s": secs, "gb_per_s": wm.nbytes / secs / 1e9}
+        if strategy == "d2d":
+            # again, into the blocks the first copy held: the caching
+            # allocator then asks CUDA for no new memory, so the
+            # difference is what allocating the replica's memory cost
+            wm.release(1000 + i)
+            del params
+            params, row["s_reused_blocks"] = wm.provision(1000 + i, "d2d",
+                                                          donor=0)
+            copy = replica_model(cluster.cfg.model, params)
+            check(not storages(copy) & storages(donor),
+                  "the d2d copy aliases its donor")
+            got = alone_tokens(copy, prompt, TRANSPORT_L_OUT)
+            want = alone_tokens(donor, prompt, TRANSPORT_L_OUT)
+            check(got == want, "the d2d replica's tokens differ from its "
+                               "donor's")
+            row["tokens_equal_donor"] = True
+            del copy
+        out[strategy] = row
+        wm.release(1000 + i)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def cluster_phase(torch, dev, phase: str) -> dict:
+    """``Cluster(backend="engine")`` serving 24 Table-1 requests with
+    Poisson arrivals on full-width qwen7b in bf16: colocated on 2
+    replicas with the Scaler on (``cluster``; the transports are timed
+    first), or prefill on one replica and decode on another
+    (``cluster_pd``).  Every request must finish with its ``l_out``
+    tokens; the paged decode kernel must have run 32 times per C == 1
+    pass summed over the replicas, and the page gather twice per P/D
+    hand-off (K and V pools) and never when colocated; the replicas'
+    weights must share no storage."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.latency_model import H100
+    from repro_torch.core.request import FOUR_TASK_SET
+    from repro_torch.core.scaler import ScalerConfig
+    from repro_torch.kernels import ops
+    from repro_torch.serving.cluster import Cluster, ClusterConfig
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.workload import poisson_workload
+
+    pd = phase == "cluster_pd"
+    layout = (dict(mode="pd", n_prefill=1, n_decode=1) if pd else
+              dict(n_workers=2, scaling=True,
+                   scaler=ScalerConfig(max_workers=3,
+                                       weight_strategy="d2d")))
+    cfg = ClusterConfig(model=get_config("qwen7b"), backend="engine",
+                        policy="hyperflexis",
+                        engine=EngineConfig(**CLUSTER_ENGINE), hw=H100,
+                        seed=SEED, **layout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cluster = Cluster(cfg, device=dev, dtype=torch.bfloat16,
+                      ckpt_dir=str(ROOT / "build" / "weights"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    loads = cluster.tl.n_weight_loads
+    transports = None if pd else time_transports(torch, cluster)
+    check(cluster.tl.n_weight_loads == loads,
+          "the transport probes reported to the cluster's TLManager")
+
+    reqs = poisson_workload(FOUR_TASK_SET, qps=CLUSTER_QPS,
+                            n_per_task=CLUSTER_N_PER_TASK, seed=SEED)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = cluster.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+
+    for r in reqs:
+        check(r.finish_time is not None and len(r.generated) == r.l_out,
+              f"{phase}: request {r.rid} produced {len(r.generated)} of "
+              f"{r.l_out}")
+    passes = {w.wid: c1_passes(w.engine) for w in cluster.workers}
+    n_layers = cfg.model.n_layers
+    n_passes = sum(passes.values())
+    check(launches["paged_decode_attention"] == n_layers * n_passes,
+          f"{phase}: decode-attention launches "
+          f"{launches['paged_decode_attention']} != {n_layers} x "
+          f"{n_passes} C==1 passes")
+    if pd:
+        check(res.kv_transfers > 0, "cluster_pd handed off nothing")
+        check(launches["page_gather"] == 2 * res.kv_transfers,
+              f"page-gather launches {launches['page_gather']} != 2 x "
+              f"{res.kv_transfers} hand-offs")
+        prefill = [w.wid for w in cluster.workers if w.role == "prefill"]
+        check(prefill and all(passes[wid] == 0 for wid in prefill),
+              "a prefill worker ran a C == 1 pass")
+    else:
+        check(launches["page_gather"] == 0, "the cluster phase exported KV")
+    live = [w.engine.model for w in cluster.workers
+            if w.engine.model is not None]
+    seen: set = set()
+    for ptrs in map(storages, live):
+        check(not ptrs & seen, f"{phase}: two replicas share weights")
+        seen |= ptrs
+    check(len(live) >= 2, f"{phase}: fewer than 2 replicas hold weights")
+
+    m = res.metrics
+    ttft = np.array([r.ttft for r in reqs])
+    tpot = np.array([r.tpot for r in reqs if r.tpot is not None])
+    dispatches = {(r.prefill_worker, r.dispatch_time) for r in reqs}
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < PEAK_LIMIT_BYTES,
+          f"{phase}: peak memory {peak / 1e9:.1f} GB over the limit")
+    out = {
+        "phase": phase, "model": cfg.model.name,
+        "n_layers": n_layers, "d_model": cfg.model.d_model,
+        "dtype": "bfloat16", "params": cfg.model.param_count(),
+        "layout": {k: v for k, v in layout.items() if k != "scaler"},
+        "policy": cfg.policy, "engine": CLUSTER_ENGINE,
+        "traffic": {"tasks": list(FOUR_TASK_SET), "qps": CLUSTER_QPS,
+                    "n": len(reqs)},
+        "served": m.n_finished, "n_total": m.n_total,
+        "prompt_tokens": int(sum(r.l_in for r in reqs)),
+        "output_tokens": int(sum(r.l_out for r in reqs)),
+        "attainment": m.attainment, "ttft_attainment": m.ttft_attainment,
+        "tpot_attainment": m.tpot_attainment,
+        "per_task": {t: {k: v[k] for k in ("attainment", "ttft_attainment",
+                                           "tpot_attainment", "n")}
+                     for t, v in m.per_task.items()},
+        "ttft_p50_s": float(np.percentile(ttft, 50)),
+        "ttft_p99_s": float(np.percentile(ttft, 99)),
+        "tpot_p50_s": float(np.percentile(tpot, 50)),
+        "tpot_p99_s": float(np.percentile(tpot, 99)),
+        # the cluster's clock is virtual: each replica's measured steps
+        # overlap as if every replica had a card of its own, while on
+        # this one card they ran in turn; the ratio says by how much
+        # the clock (and with it TTFT, TPOT and attainment) runs ahead
+        # of what one card served
+        "clock": "virtual, a card per replica",
+        "makespan_s": m.makespan, "wall_s": wall,
+        "makespan_over_wall": m.makespan / wall, "init_s": init_s,
+        "n_weight_loads": cluster.tl.n_weight_loads,
+        "n_scale_out": res.n_scale_out, "n_scale_in": res.n_scale_in,
+        "n_role_flips": res.n_role_flips, "kv_transfers": res.kv_transfers,
+        "dispatches": len(dispatches),
+        "dispatched_by_worker": {
+            str(w.wid): sum(r.prefill_worker == w.wid for r in reqs)
+            for w in cluster.workers},
+        "c1_passes_by_worker": {str(k): v for k, v in passes.items()},
+        "decode_block_hist": res.decode_block_hist,
+        "n_dispatches": res.n_dispatches,
+        "timeline": [(round(t, 4), wid, ev) for t, wid, ev in res.timeline],
+        "transports": transports, "launches": launches,
+        "peak_mem_gb": peak / 1e9,
+    }
+    emit(out)
+    del cluster, res, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: slot plane, gemma3-4b
 # ---------------------------------------------------------------------------
 
 
@@ -968,7 +1212,7 @@ def slot_phase(torch, dev, model, init_s: float):
 
 
 # ---------------------------------------------------------------------------
-# phases 6-7: mamba2 on the slot plane, zamba2 on the paged plane
+# phases 8-9: mamba2 on the slot plane, zamba2 on the paged plane
 # ---------------------------------------------------------------------------
 
 
@@ -1033,7 +1277,7 @@ def hybrid_phase(torch, dev, model, init_s: float):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: kernel path vs plain path, f32
+# phase 10: kernel path vs plain path, f32
 # ---------------------------------------------------------------------------
 
 
@@ -1290,8 +1534,10 @@ def main() -> int:
     model, init_s = load("qwen7b")
     serve = serve_phase(torch, dev, model, init_s)
     pd = pd_phase(torch, dev, model)
-    del model                  # free qwen7b before gemma3 loads
+    del model                  # free qwen7b before the clusters draw theirs
     torch.cuda.empty_cache()
+    cluster = cluster_phase(torch, dev, "cluster")
+    cluster_pd = cluster_phase(torch, dev, "cluster_pd")
     model, init_s = load("gemma3-4b")
     slot = slot_phase(torch, dev, model, init_s)
     del model
@@ -1316,7 +1562,8 @@ def main() -> int:
 
     # launches: the main paths' runs, each with the counts set to 0 just
     # before it (the kernels phase's comparisons are not counted)
-    main_paths = {"serve": serve, "pd": pd, "slot": slot, "mamba": mamba,
+    main_paths = {"serve": serve, "pd": pd, "cluster": cluster,
+                  "cluster_pd": cluster_pd, "slot": slot, "mamba": mamba,
                   "hybrid": hybrid, "hybrid_pd": hybrid_pd}
     csrc = "src/repro_torch/kernels/csrc"
     kernels = []

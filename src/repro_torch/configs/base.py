@@ -162,6 +162,16 @@ class ModelConfig:
             + di * d  # out proj
         )
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE top-k instead of all experts)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        d = self.d_model
+        full_ffn = self.n_layers * m.num_experts * 3 * d * m.expert_d_ff
+        act_ffn = self.n_layers * m.top_k * 3 * d * m.expert_d_ff
+        return self.param_count() - full_ffn + act_ffn
+
 
 def reduce_config(cfg: ModelConfig) -> ModelConfig:
     """Shrink a config to a CPU-runnable smoke variant of the same family."""

@@ -1,2 +1,3 @@
-"""The port's serving plane: the paged inference engine, its KV
-manager and the run metrics."""
+"""The port's serving plane: ``Cluster`` over simulated or engine
+workers, the inference engine and its KV manager, weight provisioning,
+recovery, the online session, workloads and the run metrics."""

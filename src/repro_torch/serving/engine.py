@@ -45,8 +45,14 @@ and speculative decoding with the JAX engine's ``ValueError``: its
 slot-resident state cannot be shared by page or truncated back.  Not
 ported yet, and refused with ``NotImplementedError`` rather than run
 some other way: both features for pure-attention models on the paged
-plane.  ``fn_cache`` and ``warm_decode_blocks`` have no counterpart —
-PyTorch runs eagerly, with nothing to compile.
+plane; ``peek_prefix`` returns 0 and the speculative counters stay 0,
+so the control plane reads them as the JAX engine's with both features
+off.  ``fn_cache`` has no counterpart: PyTorch runs eagerly, with
+nothing to compile or share.  ``warm_decode_blocks`` runs one all-frozen
+decode block per power-of-two K, outputs discarded, as the JAX engine
+compiles them: the cluster calls it on a throwaway engine so that the
+first kernel launches, cuBLAS's and the allocator's set-up land in no
+measured step.
 """
 
 from __future__ import annotations
@@ -91,6 +97,16 @@ class EngineConfig:
     prefix_cache_pages: Optional[int] = None
     spec_decode: bool = False
     max_spec_len: int = 8
+
+    @classmethod
+    def smoke(cls, **overrides) -> "EngineConfig":
+        """The canonical CPU-sized engine shape examples, benchmarks,
+        and CI smoke runs share (pair with smoke model configs and
+        clipped workloads, e.g. ``workload.engine_smoke_workload``)."""
+        kw = dict(n_slots=4, max_len=48, prefill_batch=2, page_size=8,
+                  chunk_size=16)
+        kw.update(overrides)
+        return cls(**kw)
 
 
 class InferenceEngine:
@@ -140,6 +156,7 @@ class InferenceEngine:
         self.model = model
         self.cfg = cfg
         self.device = model.device
+        self.prefix = None  # no prefix cache; Cluster reads this member
         self.slots = SlotManager(cfg.n_slots)
         if self.paged:
             self.kv = PagedKVManager(cfg.n_slots, cfg.max_len, cfg.page_size,
@@ -175,6 +192,17 @@ class InferenceEngine:
         self.n_decode_tokens = 0    # tokens emitted by decode steps
         self.n_prefill_tokens = 0   # prompt tokens prefilled
         self.decode_block_hist: dict[int, int] = {}  # K -> n blocks
+        # speculative decoding is refused above: these stay 0
+        self.n_spec_dispatches = 0   # propose-verify dispatches
+        self.n_spec_proposed = 0     # drafted tokens sent to verify
+        self.n_spec_accepted = 0     # drafted tokens accepted
+
+    def peek_prefix(self, prompt) -> int:
+        """Hit length (tokens) a prefix-cache lookup would return for
+        ``prompt`` right now — read-only.  The Dispatcher's admission
+        budget charges only the uncached suffix ``l_in - peek``.
+        Always 0: the port's engine has no prefix cache."""
+        return 0
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -414,6 +442,22 @@ class InferenceEngine:
         return r
 
     # -- P/D hand-off ---------------------------------------------------------
+    def _slot_of(self, rid: int) -> Optional[int]:
+        """O(1) lookup via the rid -> slot index kept in sync by the
+        alloc (admission/prefill/import) and release (retire/evict/
+        preempt) paths — no three-pool linear scan per export."""
+        return self._rid_slot.get(rid)
+
+    def exportable(self, rid: int) -> bool:
+        """True while ``rid``'s KV is resident in a state export_kv
+        accepts: parked or mid-decode, not still prefilling and not
+        recompute-preempted back to the queue.  The source-side guard
+        for in-flight migrations — a transfer scheduled while the
+        request was exportable may land after it finished or was
+        preempted, and then there is nothing left to move."""
+        s = self._slot_of(rid)
+        return self.paged and s is not None and s not in self.prefilling
+
     def export_kv(self, rid: int) -> KVPayload:
         """Materialize request ``rid``'s cache + generation state for a
         hand-off.  The request must have completed prefill (parked, or
@@ -528,6 +572,33 @@ class InferenceEngine:
                                self._tensor(self.pos))
             self._host_state_dirty = False
         return self._dev_state
+
+    def warm_decode_blocks(self) -> None:
+        """Run one decode block per power-of-two K up to ``decode_block``
+        with an all-frozen batch, outputs discarded — the counterpart of
+        the JAX engine's compile-ahead, so that first launches and
+        allocations land in no measured step.  For an idle engine: a
+        frozen paged row drops its writes, but a frozen slot-plane row
+        rewrites its position-0 entry, so the slot plane's rows are
+        cleared afterwards."""
+        if self.queue or self.active or self.prefilling or self.parked:
+            raise RuntimeError("warm_decode_blocks needs an idle engine")
+        cfg = self.cfg
+        zeros = self._tensor(np.zeros(cfg.n_slots, np.int32))
+        alive = self._tensor(np.zeros(cfg.n_slots, bool))
+        state = (zeros, zeros, alive, zeros + 1, -1, cfg.max_len)
+        k = 2
+        while k <= max(1, cfg.decode_block):
+            if self.paged:
+                self.model.decode_block(
+                    self.caches, self.kv.device_table(), *state, k=k)
+            else:
+                self.model.decode_block_slots(self.caches, *state, k=k)
+            self._sync()
+            k *= 2
+        if not self.paged:
+            self.caches = clear_rows(self.caches, self.axes,
+                                     list(range(cfg.n_slots)))
 
     def _decode_block_step(self, k: int) -> dict:
         """One fused K-iteration decode block: one dispatch and one host

@@ -1,16 +1,25 @@
 """Evaluation metrics (paper §7.5): attainment, E2E latency, cost.
 
-A copy of the post-run summary of ``repro/serving/metrics.py``:
-:func:`compute_metrics` reduces finished request records to a
-:class:`RunMetrics` with the same schema as the JAX package, per-task
-TTFT/TPOT attainment included.  The streaming counters are not copied:
-the online session API is a later slice.
+Two views over the same request records:
+
+- :func:`compute_metrics` — the closed-world post-run summary
+  (:class:`RunMetrics`), identical schema for simulator and engine
+  runs.
+- Streaming/incremental — :meth:`RunMetrics.partial` computes a
+  *rolling* snapshot mid-run (attainment over finished-so-far, not a
+  denominator that counts still-in-flight work as misses), and
+  :class:`StreamingStats` accumulates per-event figures the batch
+  summary can't see (TTFB from the event stream, inter-token latency,
+  admit/reject counters) without ever scanning the request list.
+
+A copy of ``repro/serving/metrics.py``, kept line for line
+(the port imports nothing from the JAX package).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -80,6 +89,24 @@ class RunMetrics:
             },
         }
 
+    @classmethod
+    def partial(cls, requests: Sequence[Request], cost_units: float,
+                now: float) -> "RunMetrics":
+        """Rolling mid-run snapshot: attainment rates are over the
+        requests *finished so far* (an in-flight request is not yet a
+        miss), while ``n_total`` / ``n_rejected`` still report the full
+        offered load.  ``makespan`` is the current clock."""
+        fin = [r for r in requests if r.finish_time is not None]
+        m = compute_metrics(fin, cost_units, now)
+        m.n_total = len(requests)
+        m.n_rejected = sum(
+            1 for r in requests if r.state == RequestState.REJECTED
+        )
+        m.n_failed = sum(
+            1 for r in requests if r.state == RequestState.FAILED
+        )
+        return m
+
 
 def compute_metrics(requests: Sequence[Request], cost_units: float,
                     makespan: float) -> RunMetrics:
@@ -132,3 +159,93 @@ def compute_metrics(requests: Sequence[Request], cost_units: float,
         n_migrated=sum(1 for r in requests if r.n_migrations > 0),
         n_kv_moves=sum(r.n_migrations for r in requests),
     )
+
+
+class StreamingStats:
+    """Incremental accounting over a live stream of serving events.
+
+    Fed one event at a time by :class:`~repro_torch.serving.session.
+    ServingSession` (kinds: ``admitted`` / ``rejected`` /
+    ``first_token`` / ``token`` / ``finished``).  Tracks what the
+    post-run summary cannot: TTFB as the client observed it on the
+    stream, inter-token latencies (per handle, from consecutive token
+    stamps), and the admission split.  O(1) per event.
+    """
+
+    # latency samples are ring-capped so a long-lived session's
+    # footprint stays bounded; percentiles then cover the most recent
+    # window, which is what a live dashboard wants anyway
+    MAX_SAMPLES = 65536
+
+    def __init__(self):
+        self.n_admitted = 0
+        self.n_rejected = 0
+        self.n_finished = 0
+        self.n_failed = 0
+        self.n_retried = 0
+        self.n_tokens = 0
+        self._ttfb: list[float] = []
+        self._itl: list[float] = []
+        self._ttfb_i = 0
+        self._itl_i = 0
+        self._last_tok: dict[int, float] = {}  # rid -> last token stamp
+
+    def _push(self, buf: list, cursor: int, x: float) -> int:
+        if len(buf) < self.MAX_SAMPLES:
+            buf.append(x)
+            return cursor
+        buf[cursor] = x
+        return (cursor + 1) % self.MAX_SAMPLES
+
+    def observe(self, kind: str, rid: int, t: float,
+                arrival: Optional[float] = None) -> None:
+        if kind == "admitted":
+            self.n_admitted += 1
+        elif kind == "rejected":
+            self.n_rejected += 1
+        elif kind == "first_token":
+            self.n_tokens += 1
+            if arrival is not None:
+                self._ttfb_i = self._push(self._ttfb, self._ttfb_i,
+                                          t - arrival)
+            self._last_tok[rid] = t
+        elif kind == "token":
+            self.n_tokens += 1
+            last = self._last_tok.get(rid)
+            if last is not None:
+                self._itl_i = self._push(self._itl, self._itl_i,
+                                         t - last)
+            self._last_tok[rid] = t
+        elif kind == "finished":
+            self.n_finished += 1
+            self._last_tok.pop(rid, None)
+        elif kind == "failed":
+            self.n_failed += 1
+            self._last_tok.pop(rid, None)
+        elif kind == "retried":
+            self.n_retried += 1
+            # a crash re-prefill re-emits from scratch: the next token
+            # stamp must not be compared to a pre-fault one (the gap is
+            # recovery latency, not steady-state inter-token latency)
+            self._last_tok.pop(rid, None)
+
+    @staticmethod
+    def _pct(xs: list, q: float) -> float:
+        return float(np.percentile(np.array(xs), q)) if xs else 0.0
+
+    def row(self) -> dict:
+        """Flat JSON payload (the BENCH_streaming.json schema)."""
+        return {
+            "n_admitted": self.n_admitted,
+            "n_rejected": self.n_rejected,
+            "n_finished": self.n_finished,
+            "n_failed": self.n_failed,
+            "n_retried": self.n_retried,
+            "n_tokens": self.n_tokens,
+            "mean_ttfb": round(float(np.mean(self._ttfb))
+                               if self._ttfb else 0.0, 5),
+            "p99_ttfb": round(self._pct(self._ttfb, 99), 5),
+            "mean_itl": round(float(np.mean(self._itl))
+                              if self._itl else 0.0, 6),
+            "p99_itl": round(self._pct(self._itl, 99), 6),
+        }

@@ -10,6 +10,11 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.distributed.checkpoint import (  # noqa: E402
+    load_checkpoint,
+    load_latest,
+    save_checkpoint,
+)
 from repro_torch.models.build import Model  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -45,7 +50,8 @@ def test_forbidden_import_rule():
     assert _forbidden("repro") and not _forbidden("repro_torch.models")
 
 
-def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
+                                                           tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke_config("qwen7b")
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -53,3 +59,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Model(cfg, device="cuda")
     assert Model(cfg, device="cpu").device.type == "cpu"
+    tree = {"w": torch.arange(6, dtype=torch.float32).reshape(2, 3)}
+    save_checkpoint(str(tmp_path), 0, tree)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_checkpoint(str(tmp_path), 0, tree)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_latest(str(tmp_path), tree)
+    got, _ = load_checkpoint(str(tmp_path), 0, tree, device="cpu")
+    assert got["w"].device.type == "cpu" and torch.equal(got["w"], tree["w"])
