@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
-``build/kernels/``), then runs ten phases, each printing a JSON line
+``build/kernels/``), then runs thirteen phases, each printing a JSON line
 (``hybrid`` a second one for its hand-off, ``parity`` one per model):
 
 1. ``device``  — the card, its power limit and the kernel build time;
@@ -37,7 +37,34 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
 4. ``pd``      — one request prefilled on engine A, exported, evicted and
    imported into engine B: tokens identical to the colocated run, the
    payload size as predicted, the page-gather kernel launched.
-5. ``cluster`` — the port's ``Cluster(backend="engine")`` on full-width
+5. ``prefix``  — the prefix cache on the same model and engine config:
+   16 chat requests over 4 shared 1024-token system prompts (Zipfian
+   groups, private suffixes of 1-64 tokens, 32 output tokens) served in
+   two waves — the first request of each group, then the other 12 at
+   once — with the cache on and off.  Every request must be served, the
+   cache must hit, and the prefill tokens saved must equal the hit
+   tokens exactly; then a request that hit is handed from a parking
+   engine to a second one through ``export_kv`` / ``import_kv`` (its
+   table starts with shared pages): tokens equal to the same requests
+   served colocated, no cached page referenced after the evict.  The
+   paged decode kernel must have run 32 times per C == 1 pass over the
+   phase's engines and the page gather twice.  Prints hit tokens,
+   prefill tokens, prefill step time (the engine's and CUDA events')
+   and the second wave's TTFT with the cache on and off, and the share
+   of requests whose tokens match between the two runs (bf16: a near-tie
+   may flip where a hit prefills its suffix in other chunks).
+6. ``spec``    — SLO-customized speculative decoding on the same model:
+   the first 8 ``serve`` requests and 8 prompts tiling a random 24-token
+   phrase to 768 tokens (128 output tokens), with speculation on
+   (``max_spec_len`` 8) and off.  Every request must be served,
+   speculation must have dispatched, no more tokens accepted than
+   proposed, the depth histogram summing to the dispatches, and the
+   paged decode kernel run 32 times per C == 1 pass (a verify pass is a
+   C >= 2 chunk through plain chunk attention, which launches no decode
+   kernel).  Prints proposed and accepted tokens, the depth histogram,
+   verify-pass and C == 1 pass times, TPOT and decode tok/s on and off,
+   and the token match share.
+7. ``cluster`` — the port's ``Cluster(backend="engine")`` on full-width
    qwen7b in bf16 (seed weights drawn on the card, offloaded to the
    host and checkpointed under ``build/weights/``, then dropped): 2
    colocated replicas provisioned from the host copy, the HyperFlexis
@@ -55,29 +82,29 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
    75 GB.  TTFT, TPOT and attainment are read on the cluster's virtual
    clock, which overlaps the replicas' measured steps as if each had a
    card; ``makespan_over_wall`` says how far it ran ahead of this card.
-6. ``cluster_pd`` — the same traffic on one prefill and one decode
+8. ``cluster_pd`` — the same traffic on one prefill and one decode
    replica: every request finishes, the page gather runs twice per
    hand-off (K and V pools), the prefill replica runs no C == 1 pass.
-7. ``slot``    — gemma3-4b at full width in bf16 (random weights from a
+9. ``slot``    — gemma3-4b at full width in bf16 (random weights from a
    seed) serving 16 requests on the slot plane, which the engine picks
    by itself for its sliding-window layers: 12 Table-1 requests and 4
    wikisql prompts longer than the 1024-token window.  Every request
    must finish; flash attention must have run 34 times per prefill
    dispatch and the contiguous decode-attention kernel 5 times (the
    global layers) per C == 1 forward pass.
-8. ``mamba``   — mamba2-2.7b at full width in bf16 (random weights from
+10. ``mamba``   — mamba2-2.7b at full width in bf16 (random weights from
    a seed) serving the ``serve`` phase's 16 requests on the slot plane
    (``paged=False``): every request must finish, the SSD kernel must
    have run 64 times per prefill dispatch whose padded length is a
    multiple of the 256-token chunk, and no attention kernel at all.
-9. ``hybrid``  — zamba2-7b at full width in bf16 serving 8 of those
+11. ``hybrid``  — zamba2-7b at full width in bf16 serving 8 of those
    requests on its default, paged plane: every request must finish and
    the paged decode kernel (head dim 112) run 13 times, once per shared
    attention invocation, per C == 1 pass; then a P/D hand-off
    (``hybrid_pd``, the ``pd`` checks) to an engine with pages of 32
    whose payload carries 68 layers of SSM/conv slot rows and 13 of
    pages.
-10. ``parity`` — f32 with TF32 off, kernel route against plain route on
+12. ``parity`` — f32 with TF32 off, kernel route against plain route on
    the same weights: a 2-layer full-width qwen7b's paged decode logits,
    a 13-layer full-width gemma3 (two local:global groups and a tail)
    prefilling an 1100-token prompt and decoding 8 tokens (logits within
@@ -86,6 +113,12 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
    (within 1e-3: the kernel and the plain scan sum the chunked SSD in
    other orders, and the decay ``exp(cum_q - cum_k)`` takes the
    difference of prefix sums that reach the hundreds within a chunk).
+13. ``feature_parity`` — f32 with TF32 off, a 2-layer full-width qwen7b:
+   the prefix cache on and off over 6 shared-prefix prompts served one
+   after another, and speculation on and off over 4 repetitive prompts
+   (32 output tokens).  Tokens must be identical; at a divergence the
+   plain run's top-2 logit margin there must be under 2e-4 (the
+   ``parity`` tolerance), or the phase fails.
 
 Then it prints the card's ``nvidia-smi`` name and power limit, one JSON
 line with every kernel's numbers, and, last,
@@ -142,6 +175,16 @@ PEAK_LIMIT_BYTES = 75e9
 ALONE_ENGINE = dict(n_slots=1, max_len=256, page_size=16, chunk_size=256,
                     decode_block=8)
 TRANSPORT_L_IN, TRANSPORT_L_OUT = 128, 16
+# prefix phase: chat traffic over shared system prompts
+PREFIX_N, PREFIX_GROUPS, PREFIX_LEN, PREFIX_SUFFIX, PREFIX_L_OUT = (
+    16, 4, 1024, 64, 32)
+# spec phase: 8 Table-1 requests + 8 prompts tiling a 24-token phrase
+SPEC_N_TABLE1, SPEC_N_REPEAT, SPEC_PHRASE, SPEC_L_IN, SPEC_L_OUT = (
+    8, 8, 24, 768, 128)
+SPEC_MAX_LEN = 8
+# feature_parity phase: the features on and off in f32, 2 layers
+FEATURE_ENGINE = dict(n_slots=4, max_len=2048, page_size=16, chunk_size=256)
+FEATURE_TOL = 2e-4
 
 
 def emit(obj) -> None:
@@ -795,39 +838,73 @@ def drive(torch, engine, reqs, phase: str) -> dict:
     launch counts set to 0 just before; check that every request got
     its ``l_out`` tokens; return the phase's summary."""
     from repro_torch.kernels import ops
-    from repro_torch.serving.metrics import compute_metrics
 
-    cfg = engine.model.cfg
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     for r in reqs:
         engine.submit(r)
-    steps = 0
-    time_by_kind: dict[str, float] = {}
-    steps_by_kind: dict[str, int] = {}
-    while engine.queue or engine.prefilling or engine.active:
-        ev = engine.step()
-        steps += 1
-        kind = ev["kind"]
-        time_by_kind[kind] = time_by_kind.get(kind, 0.0) + ev.get("time", 0.0)
-        steps_by_kind[kind] = steps_by_kind.get(kind, 0) + 1
-        if steps % 25 == 0:
-            engine.fit_profiler()   # refresh Eq. 1/2 online
-        check(steps < 20_000, f"{phase} phase did not drain")
+    log = step_until_idle(torch, engine, phase)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    check_served(reqs, phase)
+    return {**serving_summary(engine, reqs, phase, log), "wall_s": wall,
+            "launches": launches,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
 
+
+def step_until_idle(torch, engine, phase: str, log=None) -> dict:
+    """Step ``engine`` until it holds no work, refitting its profiler
+    every 25 steps (Eq. 1/2 online).  ``log`` (created if None, and
+    returned) gathers the steps by kind, the engine's measured time by
+    kind, the CUDA-event time by kind (``gpu_ms_by_kind``: from before
+    the step's first launch to after its last kernel) and every
+    speculative verify pass's (width, seconds)."""
+    if log is None:
+        log = {"steps": 0, "steps_by_kind": {}, "time_by_kind_s": {},
+               "gpu_ms_by_kind": {}, "verify": []}
+    while engine.queue or engine.prefilling or engine.active:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ev = engine.step()
+        end.record()
+        end.synchronize()
+        log["steps"] += 1
+        kind = ev["kind"]
+        for key, val in (("steps_by_kind", 1),
+                         ("time_by_kind_s", ev.get("time", 0.0)),
+                         ("gpu_ms_by_kind", start.elapsed_time(end))):
+            log[key][kind] = log[key].get(kind, 0) + val
+        if ev.get("spec"):
+            log["verify"].append((ev["k"], ev["time"]))
+        if log["steps"] % 25 == 0:
+            engine.fit_profiler()
+        check(log["steps"] < 20_000, f"{phase} phase did not drain")
+    return log
+
+
+def check_served(reqs, phase: str) -> None:
     for r in reqs:
         check(r.finish_time is not None and len(r.generated) == r.l_out,
-              f"request {r.rid} produced {len(r.generated)} of {r.l_out}")
+              f"{phase}: request {r.rid} produced {len(r.generated)} of "
+              f"{r.l_out}")
+
+
+def serving_summary(engine, reqs, phase: str, log: dict) -> dict:
+    """The numbers every serving phase prints for ``reqs`` served by
+    ``engine`` (TTFT / TPOT percentiles, decode tok/s over the decode
+    steps' measured time, the step log)."""
+    from repro_torch.serving.metrics import compute_metrics
+
+    cfg = engine.model.cfg
     m = compute_metrics(reqs, cost_units=engine.clock,
                         makespan=engine.clock)
     ttft = np.array([r.ttft for r in reqs])
     tpot = np.array([r.tpot for r in reqs])
-    decode_s = time_by_kind.get("decode", 0.0)
+    decode_s = log["time_by_kind_s"].get("decode", 0.0)
     return {
         "phase": phase, "model": cfg.name, "n_layers": cfg.n_layers,
         "d_model": cfg.d_model,
@@ -842,12 +919,10 @@ def drive(torch, engine, reqs, phase: str) -> dict:
         "tpot_p99_s": float(np.percentile(tpot, 99)),
         "decode_tok_per_s": engine.n_decode_tokens / max(decode_s, 1e-9),
         "metrics": m.row(),
-        "steps": steps, "steps_by_kind": steps_by_kind,
-        "time_by_kind_s": time_by_kind, "wall_s": wall,
+        **{k: v for k, v in log.items() if k != "verify"},
         "engine_clock_s": engine.clock,
         "decode_block_hist": engine.decode_block_hist,
-        "c1_passes": c1_passes(engine), "launches": launches,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "c1_passes": c1_passes(engine),
     }
 
 
@@ -932,7 +1007,300 @@ def pd_phase(torch, dev, model, phase: str = "pd", dst_engine=ENGINE):
 
 
 # ---------------------------------------------------------------------------
-# phases 5 and 6: the port's Cluster on qwen7b, colocated and P/D
+# phase 5: the prefix cache
+# ---------------------------------------------------------------------------
+
+
+def prefix_requests(vocab: int) -> list:
+    """16 chat requests over 4 Zipfian system prompts of 1024 tokens,
+    each with a private suffix of 1-64 tokens and 32 output tokens."""
+    from repro_torch.serving.workload import (
+        materialize_prompts,
+        shared_prefix_workload,
+    )
+
+    reqs = shared_prefix_workload(
+        n=PREFIX_N, n_groups=PREFIX_GROUPS, shape="chat",
+        prefix_len=PREFIX_LEN, suffix_len=PREFIX_SUFFIX, l_out=PREFIX_L_OUT,
+        seed=SEED)
+    materialize_prompts(reqs, vocab, seed=SEED, max_len=ENGINE["max_len"])
+    return reqs
+
+
+def divergences(torch, model, prompts, got, want) -> list:
+    """Where two runs' token lists first differ, and the top-2 logit
+    margin of ``want``'s run there (recomputed on the plain route): a
+    margin within the dtype's rounding says a near-tie flipped."""
+    out = []
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        if a != b:
+            j = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            out.append({"request": i, "position": j, "margin": top2_margin(
+                torch, model, list(p) + b[:j])})
+    return out
+
+
+def waves(reqs) -> tuple[list, list]:
+    """The first request of each prefix group, and all the others."""
+    first: dict = {}
+    for r in reqs:
+        first.setdefault(r.prefix_group, r.rid)
+    one = set(first.values())
+    return ([r for r in reqs if r.rid in one],
+            [r for r in reqs if r.rid not in one])
+
+
+def serve_waves(torch, engine, reqs, phase: str) -> dict:
+    """Serve the first wave to completion, then the second, each
+    request arriving when its wave starts; the second wave's TTFT."""
+    log = None
+    for wave in waves(reqs):
+        for r in wave:
+            r.arrival = None        # the engine stamps its clock
+            engine.submit(r)
+        log = step_until_idle(torch, engine, phase, log)
+    check_served(reqs, phase)
+    ttft = np.array([r.ttft for r in waves(reqs)[1]])
+    return {"log": log,
+            "wave2_ttft_p50_s": float(np.percentile(ttft, 50)),
+            "wave2_ttft_p99_s": float(np.percentile(ttft, 99))}
+
+
+def prefix_phase(torch, dev, model) -> dict:
+    """Shared-prefix chat traffic served in two waves (the first request
+    of each group, then the other 12 at once), with the prefix cache on
+    and off; then one request that hit handed from a parking engine to a
+    second engine.  Every request must be served; the cache must hit;
+    the prefill tokens saved must equal the hit tokens exactly; the
+    paged decode kernel must have run 32 times per C == 1 pass over the
+    phase's engines and the page gather twice (the one hand-off); after
+    the hand-off's evict no cached page may be referenced."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    runs, passes, tokens = {}, 0, {}
+    for on in (True, False):
+        reqs = prefix_requests(cfg.vocab_size)
+        prompts = [r.prompt for r in reqs]
+        engine = InferenceEngine(model, EngineConfig(**ENGINE,
+                                                     prefix_cache=on))
+        run = serve_waves(torch, engine, reqs, "prefix")
+        log = run["log"]
+        runs[on] = {
+            "n_prefill_tokens": engine.n_prefill_tokens,
+            "prefill_step_s": log["time_by_kind_s"].get("prefill_chunk", 0),
+            "prefill_gpu_ms": log["gpu_ms_by_kind"].get("prefill_chunk", 0),
+            "prefill_steps": log["steps_by_kind"].get("prefill_chunk", 0),
+            "wave2_ttft_p50_s": run["wave2_ttft_p50_s"],
+            "wave2_ttft_p99_s": run["wave2_ttft_p99_s"],
+            "c1_passes": c1_passes(engine),
+            "decode_block_hist": engine.decode_block_hist,
+            "prefix_stats": engine.prefix.stats() if on else None,
+            "hit_tokens": sum(r.prefix_hit_tokens for r in reqs),
+        }
+        passes += c1_passes(engine)
+        tokens[on] = [list(r.generated) for r in reqs]
+        del engine, run
+        torch.cuda.empty_cache()
+    hits = runs[True]["prefix_stats"]["n_hit_tokens"]
+    check(hits > 0, "the prefix cache never hit")
+    check(runs[True]["hit_tokens"] == hits,
+          "requests' hit tokens do not add up to the cache's")
+    saved = runs[False]["n_prefill_tokens"] - runs[True]["n_prefill_tokens"]
+    check(saved == hits, f"prefill tokens saved {saved} != hit tokens {hits}")
+    diverged = divergences(torch, model, prompts, tokens[True], tokens[False])
+
+    handoff, hand_passes = prefix_handoff(torch, model)
+    passes += hand_passes
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(launches["paged_decode_attention"] == cfg.n_layers * passes,
+          f"prefix: decode-attention launches "
+          f"{launches['paged_decode_attention']} != {cfg.n_layers} x "
+          f"{passes} C==1 passes")
+    check(launches["page_gather"] == 2,
+          f"prefix: page-gather launches {launches['page_gather']} != 2")
+    out = {"phase": "prefix", "model": cfg.name, "engine": ENGINE,
+           "traffic": {"n": PREFIX_N, "groups": PREFIX_GROUPS,
+                       "prefix_len": PREFIX_LEN, "suffix_len": PREFIX_SUFFIX,
+                       "l_out": PREFIX_L_OUT},
+           "on": runs[True], "off": runs[False],
+           "prefill_tokens_saved": saved,
+           "token_match_share": 1 - len(diverged) / len(tokens[True]),
+           "first_divergence": diverged,
+           "handoff": handoff, "c1_passes": passes, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def prefix_handoff(torch, model) -> tuple[dict, int]:
+    """A group-mate of a served request, admitted over its published
+    pages on a parking engine, exported, evicted and imported into a
+    second engine: tokens equal to the same two requests served
+    colocated.  Returns the summary and the C == 1 passes run."""
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    first, rest = waves(prefix_requests(model.cfg.vocab_size))
+    warm = first[0]
+    mate = next(r for r in rest if r.prefix_group == warm.prefix_group)
+
+    def two(engine, park: bool):
+        w, r = (dataclasses.replace(x, generated=None, arrival=None)
+                for x in (warm, mate))
+        engine.submit(w)
+        engine.run_until_done()
+        engine.park_on_prefill = park
+        engine.submit(r)
+        engine.run_until_done()
+        check(r.prefix_hit_tokens > 0, "the hand-off request did not hit")
+        return r
+
+    colocated = InferenceEngine(model, EngineConfig(**ENGINE,
+                                                    prefix_cache=True))
+    want = list(two(colocated, False).generated)
+    passes = c1_passes(colocated)
+    del colocated
+    torch.cuda.empty_cache()
+    a = InferenceEngine(model, EngineConfig(**ENGINE, prefix_cache=True))
+    r = two(a, True)
+    check(r.slot in a.parked, "the hit request did not park")
+    pages = a.kv.pages_of(r.slot)
+    shared = [p for p in pages if a.prefix.is_cached(p)]
+    check(shared and pages[:len(shared)] == shared,
+          "the parked table does not start with shared pages")
+    payload = a.export_kv(r.rid)
+    a.evict(r.slot)
+    refs = [a.prefix.refs(p) for p in list(a.prefix._entries)]
+    check(not any(refs), f"cached pages still referenced after evict: {refs}")
+    check(a.kv.n_available_pages == a.kv.n_pages,
+          "pages leaked after the hand-off's evict")
+    passes += c1_passes(a)
+    del a
+    torch.cuda.empty_cache()
+    b = InferenceEngine(model, EngineConfig(**ENGINE))
+    check(b.import_kv(payload, r), "import_kv refused the payload")
+    b.run_until_done()
+    passes += c1_passes(b)
+    check(r.generated == want,
+          "hand-off tokens differ from the colocated run's")
+    out = {"hit_tokens": r.prefix_hit_tokens, "shared_pages": len(shared),
+           "pages": len(pages), "payload_bytes": payload.nbytes,
+           "tokens_identical": True}
+    del b, payload
+    torch.cuda.empty_cache()
+    return out, passes
+
+
+# ---------------------------------------------------------------------------
+# phase 6: SLO-customized speculative decoding
+# ---------------------------------------------------------------------------
+
+
+def spec_requests(vocab: int) -> list:
+    """The first 8 Table-1 requests (random prompts) and 8 repetitive
+    ones: a random 24-token phrase tiled to 768 tokens, 128 output
+    tokens, with the Table-1 SLOs of their task."""
+    from repro_torch.core.request import FOUR_TASK_SET, TASKS, Request
+
+    reqs = table1_requests(vocab)[:SPEC_N_TABLE1]
+    rng = np.random.default_rng(SEED + 12)
+    for i in range(SPEC_N_REPEAT):
+        spec = TASKS[FOUR_TASK_SET[i % len(FOUR_TASK_SET)]]
+        phrase = rng.integers(0, vocab, SPEC_PHRASE).astype(np.int32)
+        prompt = np.tile(phrase, SPEC_L_IN // SPEC_PHRASE)
+        reqs.append(Request.from_prompt(
+            len(reqs), prompt, SPEC_L_OUT, task=spec.name,
+            ttft_slo=spec.ttft_slo, tpot_slo=spec.tpot_slo))
+    return reqs
+
+
+def spec_phase(torch, dev, model) -> dict:
+    """The 16 requests with speculation on (``max_spec_len`` 8) and off.
+    Every request must be served; speculation must have dispatched, at
+    most every proposed token accepted, the depth histogram summing to
+    the dispatches; the paged decode kernel must have run 32 times per
+    C == 1 pass (verify passes are C >= 2 and launch none)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    runs, passes, tokens = {}, 0, {}
+    for on in (True, False):
+        reqs = spec_requests(cfg.vocab_size)
+        prompts = [r.prompt for r in reqs]
+        engine = InferenceEngine(model, EngineConfig(
+            **ENGINE, spec_decode=on, max_spec_len=SPEC_MAX_LEN))
+        for r in reqs:
+            engine.submit(r)
+        log = step_until_idle(torch, engine, "spec")
+        check_served(reqs, "spec")
+        summary = serving_summary(engine, reqs, "spec", log)
+        c1 = c1_passes(engine)
+        plain_s = (log["time_by_kind_s"].get("decode", 0.0)
+                   - sum(t for _, t in log["verify"]))
+        by_width: dict = {}
+        for width, t in log["verify"]:
+            by_width.setdefault(str(width), []).append(1e3 * t)
+        runs[on] = {
+            **{k: summary[k] for k in ("tpot_p50_s", "tpot_p99_s",
+                                       "ttft_p50_s", "ttft_p99_s",
+                                       "decode_tok_per_s", "steps_by_kind",
+                                       "decode_block_hist")},
+            "c1_passes": c1, "c1_pass_ms": 1e3 * plain_s / max(c1, 1),
+            # keyed by the pass's chunk length C = padded width + 1
+            "verify_pass_ms_by_c": {
+                w: {"n": len(v), "mean": float(np.mean(v))}
+                for w, v in sorted(by_width.items(), key=lambda x: int(x[0]))},
+            "spec_dispatches": engine.n_spec_dispatches,
+            "spec_proposed": engine.n_spec_proposed,
+            "spec_accepted": engine.n_spec_accepted,
+            "spec_depth_hist": engine.spec_depth_hist,
+            "spec_task_stats": engine.spec_task_stats,
+        }
+        passes += c1
+        tokens[on] = [list(r.generated) for r in reqs]
+        del engine
+        torch.cuda.empty_cache()
+    on = runs[True]
+    check(on["spec_dispatches"] > 0, "speculation never dispatched")
+    check(on["spec_accepted"] <= on["spec_proposed"],
+          "more tokens accepted than proposed")
+    check(sum(on["spec_depth_hist"].values()) == on["spec_dispatches"],
+          "the depth histogram does not sum to the dispatches")
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(launches["paged_decode_attention"] == cfg.n_layers * passes,
+          f"spec: decode-attention launches "
+          f"{launches['paged_decode_attention']} != {cfg.n_layers} x "
+          f"{passes} C==1 passes")
+    check(launches["page_gather"] == 0, "the spec phase exported KV")
+    diverged = divergences(torch, model, prompts, tokens[True], tokens[False])
+    out = {"phase": "spec", "model": cfg.name, "engine": ENGINE,
+           "max_spec_len": SPEC_MAX_LEN,
+           "traffic": {"table1": SPEC_N_TABLE1, "repetitive": SPEC_N_REPEAT,
+                       "phrase": SPEC_PHRASE, "l_in": SPEC_L_IN,
+                       "l_out": SPEC_L_OUT},
+           "on": on, "off": runs[False],
+           "acceptance_share": (on["spec_accepted"]
+                                / max(on["spec_proposed"], 1)),
+           "token_match_share": 1 - len(diverged) / len(tokens[True]),
+           "first_divergence": diverged,
+           "c1_passes": passes, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the port's Cluster on qwen7b, colocated and P/D
 # ---------------------------------------------------------------------------
 
 
@@ -1147,7 +1515,7 @@ def cluster_phase(torch, dev, phase: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 7: slot plane, gemma3-4b
+# phase 9: slot plane, gemma3-4b
 # ---------------------------------------------------------------------------
 
 
@@ -1212,7 +1580,7 @@ def slot_phase(torch, dev, model, init_s: float):
 
 
 # ---------------------------------------------------------------------------
-# phases 8-9: mamba2 on the slot plane, zamba2 on the paged plane
+# phases 10-11: mamba2 on the slot plane, zamba2 on the paged plane
 # ---------------------------------------------------------------------------
 
 
@@ -1277,7 +1645,7 @@ def hybrid_phase(torch, dev, model, init_s: float):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: kernel path vs plain path, f32
+# phases 12-13: kernel path vs plain path, the features on and off, f32
 # ---------------------------------------------------------------------------
 
 
@@ -1400,6 +1768,119 @@ def slot_parity_phase(torch, dev, cfg, n_layers: int, l_in: int,
            "logit_absmax": float(runs[True][0].abs().max())}
     emit(out)
     del model, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def top2_margin(torch, model, tokens) -> float:
+    """Top-1 minus top-2 logit of the next token after ``tokens``,
+    prefilled alone on the plain route in chunks of 256."""
+    from repro_torch.serving.kv_manager import PagedKVManager
+
+    n, chunk, ps = len(tokens), ENGINE["chunk_size"], ENGINE["page_size"]
+    kv = PagedKVManager(1, n + 1, ps, device=model.device)
+    caches = model.init_paged_cache(1, n + 1, ps, kv.n_pages)
+    check(kv.ensure(0, n), "margin pool too small")
+    use = model.use_kernels
+    model.use_kernels = False
+    for start in range(0, n, chunk):
+        part = np.asarray(tokens[start:start + chunk], np.int32)
+        logits, caches = model.chunk_step(
+            caches, kv.device_table(),
+            torch.as_tensor(part[None], device=model.device),
+            torch.tensor([start], dtype=torch.int32, device=model.device),
+            torch.tensor([len(part)], dtype=torch.int32,
+                         device=model.device))
+    model.use_kernels = use
+    top = logits[0].float().topk(2).values
+    return float(top[0] - top[1])
+
+
+def feature_parity_phase(torch, dev, cfg) -> dict:
+    """f32 with TF32 off, full-width qwen7b cut to 2 layers: the prefix
+    cache on and off over 6 shared-prefix prompts served one after
+    another, and speculation on and off over 4 repetitive prompts.
+    Tokens must be identical; where they are not, the plain run's
+    top-2 logit margin at the first divergence must be under
+    ``FEATURE_TOL`` (the kernel-vs-plain tolerance of ``parity``): a
+    near-tie that the other route's rounding may flip."""
+    from repro_torch.core.request import Request
+    from repro_torch.kernels import ops
+    from repro_torch.models.build import Model
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+    from repro_torch.serving.workload import (
+        materialize_prompts,
+        shared_prefix_workload,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = dataclasses.replace(cfg, n_layers=2)
+    model = Model(small, dtype=torch.float32, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED + 14))
+
+    def prefix_prompts():
+        reqs = shared_prefix_workload(n=6, n_groups=2, shape="chat",
+                                      prefix_len=PREFIX_LEN,
+                                      suffix_len=PREFIX_SUFFIX, seed=SEED)
+        materialize_prompts(reqs, small.vocab_size, seed=SEED)
+        return [r.prompt for r in reqs]
+
+    def spec_prompts():
+        rng = np.random.default_rng(SEED + 15)
+        return [np.tile(rng.integers(0, small.vocab_size, SPEC_PHRASE)
+                        .astype(np.int32), 8 + 4 * i) for i in range(4)]
+
+    cases = {"prefix_cache": (prefix_prompts(), 16, True),
+             "spec_decode": (spec_prompts(), 32, False)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    out, passes = {"phase": "feature_parity", "model": small.name,
+                   "n_layers": 2, "d_model": small.d_model,
+                   "dtype": "float32", "engine": FEATURE_ENGINE,
+                   "tol": FEATURE_TOL}, 0
+    for feature, (prompts, l_out, sequential) in cases.items():
+        gen, eng_out = {}, {}
+        for on in (True, False):
+            extra = ({"prefix_cache": on} if feature == "prefix_cache"
+                     else {"spec_decode": on, "max_spec_len": SPEC_MAX_LEN})
+            engine = InferenceEngine(model, EngineConfig(**FEATURE_ENGINE,
+                                                         **extra))
+            reqs = [Request.from_prompt(i, p, l_out)
+                    for i, p in enumerate(prompts)]
+            for r in reqs:
+                engine.submit(r)
+                if sequential:
+                    engine.run_until_done()
+            engine.run_until_done()
+            check_served(reqs, "feature_parity")
+            gen[on] = [list(r.generated) for r in reqs]
+            passes += c1_passes(engine)
+            eng_out[on] = (sum(r.prefix_hit_tokens for r in reqs)
+                           if feature == "prefix_cache"
+                           else engine.n_spec_dispatches)
+            del engine
+        diverged = divergences(torch, model, prompts, gen[True], gen[False])
+        for d in diverged:
+            check(d["margin"] < FEATURE_TOL,
+                  f"feature_parity {feature}: tokens differ at "
+                  f"{d['position']} with a top-2 margin of {d['margin']}")
+        check(eng_out[True] > 0, f"feature_parity {feature}: the feature "
+                                 f"did nothing ({eng_out[True]})")
+        out[feature] = {"n": len(prompts), "identical": not diverged,
+                        "diverged": diverged,
+                        ("hit_tokens" if feature == "prefix_cache"
+                         else "spec_dispatches"): eng_out[True]}
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    check(launches["paged_decode_attention"] == small.n_layers * passes,
+          "feature_parity: decode-attention launches do not match the "
+          "C == 1 passes")
+    out.update(c1_passes=passes, launches=launches,
+               seconds=time.perf_counter() - t0)
+    emit(out)
+    del model
     torch.cuda.empty_cache()
     return out
 
@@ -1534,6 +2015,8 @@ def main() -> int:
     model, init_s = load("qwen7b")
     serve = serve_phase(torch, dev, model, init_s)
     pd = pd_phase(torch, dev, model)
+    prefix = prefix_phase(torch, dev, model)
+    spec = spec_phase(torch, dev, model)
     del model                  # free qwen7b before the clusters draw theirs
     torch.cuda.empty_cache()
     cluster = cluster_phase(torch, dev, "cluster")
@@ -1559,12 +2042,14 @@ def main() -> int:
                       SSM_PARITY_L_IN, SSM_PARITY_TOL, SEED + 8)
     slot_parity_phase(torch, dev, get_config("zamba2-7b"), 7,
                       SSM_PARITY_L_IN, SSM_PARITY_TOL, SEED + 10)
+    feature_parity = feature_parity_phase(torch, dev, get_config("qwen7b"))
 
     # launches: the main paths' runs, each with the counts set to 0 just
     # before it (the kernels phase's comparisons are not counted)
-    main_paths = {"serve": serve, "pd": pd, "cluster": cluster,
-                  "cluster_pd": cluster_pd, "slot": slot, "mamba": mamba,
-                  "hybrid": hybrid, "hybrid_pd": hybrid_pd}
+    main_paths = {"serve": serve, "pd": pd, "prefix": prefix, "spec": spec,
+                  "cluster": cluster, "cluster_pd": cluster_pd, "slot": slot,
+                  "mamba": mamba, "hybrid": hybrid, "hybrid_pd": hybrid_pd,
+                  "feature_parity": feature_parity}
     csrc = "src/repro_torch/kernels/csrc"
     kernels = []
     for name, replaces in (

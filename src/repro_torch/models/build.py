@@ -10,6 +10,7 @@ block) + 3.  It offers the JAX ``Model``'s API for both engine planes:
 
 - the paged plane: ``chunk_step`` (chunked prefill and decode over a
   paged KV pool), ``decode_block`` (K fused greedy decode iterations),
+  ``spec_decode_block`` (one speculative verify pass),
   ``init_paged_cache`` / ``paged_cache_axes``;
 - the slot plane: ``prefill`` (monolithic prompt prefill returning slot
   caches), ``decode_step``, ``decode_block_slots``, ``init_cache`` /
@@ -327,18 +328,11 @@ class Model(nn.Module):
         table = self.embed if self.head is None else self.head
         return rms_norm(x_last, self.final_norm, self.cfg.norm_eps) @ table.T
 
-    @torch.no_grad()
-    def chunk_step(self, caches, page_table, tokens, start, chunk_lens):
-        """Unified chunked-prefill / decode step over *paged* caches.
-
-        tokens: (B, C) right-padded chunk tokens; start: (B,) int32
-        absolute position of each row's first token; chunk_lens: (B,)
-        int32 valid counts — 0 freezes a row (its writes are dropped),
-        so idle decode slots ride along.  page_table: (B, MP) int32.
-        Returns (logits (B, V) at each row's last valid token, caches);
-        the caches are updated in place.  Decode is the C == 1 case.
-        """
-        b, c = tokens.shape
+    def _chunk_hidden(self, caches, page_table, tokens, start, chunk_lens):
+        """The layers of a chunk over *paged* caches: the hidden states
+        (B, C, d) of every lane, before the final norm; the caches are
+        written in place (arguments as :meth:`chunk_step`'s)."""
+        c = tokens.shape[1]
         x = embed(tokens, self.embed, self.dtype)
         steps = torch.arange(c, dtype=torch.int32, device=tokens.device)
         positions = start[:, None] + steps[None, :]
@@ -363,6 +357,21 @@ class Model(nn.Module):
                 k_pages=pools["k_pages"][row], v_pages=pools["v_pages"][row],
                 page_table=page_table, index=index,
             )
+        return x
+
+    @torch.no_grad()
+    def chunk_step(self, caches, page_table, tokens, start, chunk_lens):
+        """Unified chunked-prefill / decode step over *paged* caches.
+
+        tokens: (B, C) right-padded chunk tokens; start: (B,) int32
+        absolute position of each row's first token; chunk_lens: (B,)
+        int32 valid counts — 0 freezes a row (its writes are dropped),
+        so idle decode slots ride along.  page_table: (B, MP) int32.
+        Returns (logits (B, V) at each row's last valid token, caches);
+        the caches are updated in place.  Decode is the C == 1 case.
+        """
+        b, c = tokens.shape
+        x = self._chunk_hidden(caches, page_table, tokens, start, chunk_lens)
         idx = (chunk_lens - 1).clamp(0, c - 1).long()
         return self._logits(x[torch.arange(b, device=x.device), idx]), caches
 
@@ -408,6 +417,61 @@ class Model(nn.Module):
             last, alive = tok, new_alive
         return (torch.stack(toks, 1), torch.stack(valids, 1), last,
                 pos), caches
+
+    @torch.no_grad()
+    def spec_decode_block(self, caches, page_table, last, pos, alive, rem,
+                          eos: int, max_len: int, props, prop_lens, *,
+                          k: int):
+        """One propose-verify-accept speculative dispatch over *paged*
+        caches: score ``last`` plus up to ``k`` drafted tokens in one
+        forward pass (a C == k + 1 chunk, through plain chunk attention),
+        then accept the longest prefix of the proposal that greedy
+        decode would have produced itself.
+
+        props: (B, K) int32 drafted continuations; prop_lens: (B,) int32
+        valid draft counts (0 rides along as a plain 1-token decode).
+        Lane ``i`` holds the token whose KV lands at position ``pos + i``
+        and whose logits greedily pick the token for ``pos + i + 1``, so
+        ``t[:, i]`` is what ``i`` plain decode steps emit as long as
+        every earlier proposal matched.  The stopping predicate of
+        :meth:`decode_block` runs per lane, so EOS / l_out / max_len cut
+        the accepted span where per-token decode would stop.  Returns
+        ``(tokens (B, K+1), valid (B, K+1), last, pos), caches``;
+        ``valid`` is prefix-contiguous per row.  Rejected lanes' K/V
+        stays in the pages past the returned ``pos`` (the caches are
+        written in place): ``kv_len`` masks it, the caller truncates the
+        page table to ``pos`` and the next write overwrites it.
+        """
+        b = last.shape[0]
+        dev = last.device
+        tokens = torch.cat([last[:, None], props], dim=1)
+        chunk_lens = torch.where(alive, 1 + prop_lens,
+                                 torch.zeros_like(prop_lens)).to(torch.int32)
+        x = self._chunk_hidden(caches, page_table, tokens, pos, chunk_lens)
+        t = self._logits(x).argmax(dim=-1).to(torch.int32)   # (B, K+1)
+        idx = torch.arange(k + 1, dtype=torch.int32, device=dev)[None, :]
+        # lane i+1 is reachable iff proposal i matched the greedy pick
+        # of lane i (and was a real draft); lane 0 always is
+        match = (props == t[:, :k]) & (idx[:, :k] < prop_lens[:, None])
+        ones = torch.ones((b, 1), dtype=torch.bool, device=dev)
+        reach = torch.cat(
+            [ones, torch.cumprod(match.to(torch.int32), dim=1).bool()],
+            dim=1)
+        # per-lane stopping, evaluated as if the lane's token had been
+        # appended by a plain decode step (mirrors _decode_block_body)
+        new_pos_i = pos[:, None] + idx + 1
+        new_rem_i = rem[:, None] - (idx + 1)
+        done_i = (new_rem_i <= 0) | (t == eos) | (new_pos_i + 1 >= max_len)
+        stopped_before = torch.cat(
+            [~ones, torch.cumsum(done_i.to(torch.int32), dim=1)[:, :-1] > 0],
+            dim=1)
+        valid = alive[:, None] & reach & ~stopped_before
+        emitted = valid.sum(dim=1, dtype=torch.int32)
+        new_pos = pos + emitted
+        pick = (emitted - 1).clamp(0, k).long()
+        last_tok = torch.take_along_dim(t, pick[:, None], dim=1)[:, 0]
+        new_last = torch.where(emitted > 0, last_tok, last)
+        return (t, valid, new_last, new_pos), caches
 
     # -- slot plane ---------------------------------------------------------------
     @torch.no_grad()

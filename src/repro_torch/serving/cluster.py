@@ -330,7 +330,8 @@ class Cluster:
                 prefix_cache_pages=self.cfg.prefix_cache_pages,
             )
         if self.cfg.spec_decode:
-            # same override pattern: every replica speculates
+            # same override pattern: every replica speculates, and
+            # warm_decode_blocks below runs the verify buckets too
             self._engine_cfg = dataclasses.replace(
                 self._engine_cfg, spec_decode=True,
                 max_spec_len=self.cfg.max_spec_len,

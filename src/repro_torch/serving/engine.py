@@ -40,19 +40,34 @@ copied into their rows (``insert_rows``); decode runs per token
 raise on this plane, ``kv_bytes_of`` returns None, and the prefix cache
 and speculative decoding are refused with ``ValueError``.
 
-On the paged plane a model with Mamba-2 layers refuses the prefix cache
-and speculative decoding with the JAX engine's ``ValueError``: its
-slot-resident state cannot be shared by page or truncated back.  Not
-ported yet, and refused with ``NotImplementedError`` rather than run
-some other way: both features for pure-attention models on the paged
-plane; ``peek_prefix`` returns 0 and the speculative counters stay 0,
-so the control plane reads them as the JAX engine's with both features
-off.  ``fn_cache`` has no counterpart: PyTorch runs eagerly, with
-nothing to compile or share.  ``warm_decode_blocks`` runs one all-frozen
-decode block per power-of-two K, outputs discarded, as the JAX engine
-compiles them: the cluster calls it on a throwaway engine so that the
-first kernel launches, cuBLAS's and the allocator's set-up land in no
-measured step.
+**Prefix cache** (``prefix_cache=True``, paged plane, pure-attention
+models): a :class:`~repro_torch.serving.prefix_cache.PrefixCache` over
+the pool's allocator.  At admission a request's table starts at the
+longest cached full-page prefix of its prompt (``lookup_prefix``) and
+prefill resumes from the hit offset (``prefix_hit_tokens``); at prefill
+completion its full-page span is published.  ``peek_prefix`` tells the
+Dispatcher the hit a lookup would give.
+
+**SLO-customized speculative decoding** (``spec_decode=True``, paged
+plane, pure-attention models): when decode owns the step, each active
+lane gets a depth from its TPOT slack (``slo_spec_len``), an n-gram
+drafter fills it from the request's own history, one
+``Model.spec_decode_block`` verifies every lane in a C == K + 1 pass
+(plain chunk attention; a pass whose lanes all drafted nothing falls
+through to a plain decode step or block) and the page table is truncated
+back to the accepted position.  Greedy acceptance keeps the tokens those
+of plain decoding.
+
+On the slot plane both features are refused with the JAX engine's
+``ValueError``, and so they are on the paged plane for a model with
+Mamba-2 layers: its slot-resident state cannot be shared by page or
+truncated back.  ``fn_cache`` has no counterpart: PyTorch runs eagerly,
+with nothing to compile or share.  ``warm_decode_blocks`` runs one
+all-frozen decode block per power-of-two K and, with speculation on, one
+all-frozen verify pass per power-of-two proposal width up to
+``max_spec_len``, outputs discarded, as the JAX engine compiles them:
+the cluster calls it on a throwaway engine so that the first kernel
+launches, cuBLAS's and the allocator's set-up land in no measured step.
 """
 
 from __future__ import annotations
@@ -77,6 +92,12 @@ from repro_torch.serving.kv_manager import (
     insert_rows,
     scatter_slot_kv,
 )
+from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.spec_decode import (
+    NGramDrafter,
+    SpecConfig,
+    slo_spec_len,
+)
 
 
 @dataclasses.dataclass
@@ -93,8 +114,13 @@ class EngineConfig:
     chunk_size: int = 32            # static ceiling per prefill chunk
     # max decode iterations per fused block (1 = per-token stepping)
     decode_block: int = 8
+    # prefix cache: page-level KV reuse across requests (paged plane,
+    # pure-attention models only)
     prefix_cache: bool = False
-    prefix_cache_pages: Optional[int] = None
+    prefix_cache_pages: Optional[int] = None  # cache footprint cap
+    # SLO-customized speculative decoding (paged plane, pure-attention
+    # models): per-lane depth from each request's TPOT slack, capped at
+    # max_spec_len
     spec_decode: bool = False
     max_spec_len: int = 8
 
@@ -141,22 +167,16 @@ class InferenceEngine:
                 "slot-resident SSM/conv state has no per-position "
                 "record to truncate rejected tokens back to"
             )
-        if cfg.prefix_cache:
-            raise NotImplementedError(
-                "prefix caching is not ported yet (ROADMAP.md §1 "
-                "'Prefix cache and spec decode on the paged plane')")
-        if cfg.spec_decode:
-            raise NotImplementedError(
-                "speculative decoding is not ported yet (ROADMAP.md §1 "
-                "'Prefix cache and spec decode on the paged plane')")
         if cfg.page_size <= 0 or cfg.chunk_size <= 0:
             raise ValueError("page_size and chunk_size must be positive")
         if cfg.decode_block < 1:
             raise ValueError("decode_block must be >= 1")
+        if cfg.spec_decode and cfg.max_spec_len < 1:
+            raise ValueError("max_spec_len must be >= 1")
         self.model = model
         self.cfg = cfg
         self.device = model.device
-        self.prefix = None  # no prefix cache; Cluster reads this member
+        self.prefix = None  # PrefixCache, attached on the paged plane
         self.slots = SlotManager(cfg.n_slots)
         if self.paged:
             self.kv = PagedKVManager(cfg.n_slots, cfg.max_len, cfg.page_size,
@@ -164,6 +184,10 @@ class InferenceEngine:
             self.caches = model.init_paged_cache(
                 cfg.n_slots, cfg.max_len, cfg.page_size, self.kv.n_pages)
             self.axes = model.paged_cache_axes()
+            if cfg.prefix_cache:
+                self.prefix = PrefixCache(self.kv.alloc, cfg.page_size,
+                                          max_pages=cfg.prefix_cache_pages)
+                self.kv.attach_prefix_cache(self.prefix)
         else:
             self.kv = None
             self.caches = model.init_cache(cfg.n_slots, cfg.max_len)
@@ -190,19 +214,33 @@ class InferenceEngine:
         self._host_state_dirty = True
         self.n_dispatches = 0       # dispatches (= host syncs)
         self.n_decode_tokens = 0    # tokens emitted by decode steps
-        self.n_prefill_tokens = 0   # prompt tokens prefilled
+        # prompt tokens actually prefilled: cache hits skip prefill, so
+        # with a prefix cache this undercounts l_in by the hit tokens
+        self.n_prefill_tokens = 0
         self.decode_block_hist: dict[int, int] = {}  # K -> n blocks
-        # speculative decoding is refused above: these stay 0
+        # speculative decoding: the drafter and acceptance telemetry
+        self.drafter: Optional[NGramDrafter] = None
+        self._spec_cfg: Optional[SpecConfig] = None
         self.n_spec_dispatches = 0   # propose-verify dispatches
         self.n_spec_proposed = 0     # drafted tokens sent to verify
         self.n_spec_accepted = 0     # drafted tokens accepted
+        self.spec_depth_hist: dict[int, int] = {}  # pad width -> n
+        # per-task acceptance stats (the SLO tiers differ by task)
+        self.spec_task_stats: dict[str, dict] = {}
+        if cfg.spec_decode:
+            self._spec_cfg = SpecConfig(max_spec_len=cfg.max_spec_len)
+            self.drafter = NGramDrafter(
+                max_ngram=self._spec_cfg.max_ngram,
+                min_ngram=self._spec_cfg.min_ngram,
+            )
 
     def peek_prefix(self, prompt) -> int:
         """Hit length (tokens) a prefix-cache lookup would return for
         ``prompt`` right now — read-only.  The Dispatcher's admission
-        budget charges only the uncached suffix ``l_in - peek``.
-        Always 0: the port's engine has no prefix cache."""
-        return 0
+        budget charges only the uncached suffix ``l_in - peek``."""
+        if self.prefix is None or prompt is None:
+            return 0
+        return self.kv.peek_prefix(prompt)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -316,7 +354,10 @@ class InferenceEngine:
             r = self.queue.pop(0)
             s = self.slots.alloc(r)
             r.slot = s
-            r.prefill_progress = 0
+            # prefix-cache hit: the slot's table starts at the shared
+            # pages and prefill resumes from the hit offset
+            r.prefill_progress = self.kv.lookup_prefix(s, r.prompt)
+            r.prefix_hit_tokens = r.prefill_progress
             r.state = RequestState.PREFILLING
             self.prefilling[s] = r
             self._rid_slot[r.rid] = s
@@ -373,6 +414,9 @@ class InferenceEngine:
         for s, r in list(self.prefilling.items()):
             r.prefill_progress += takes[s]
             if takes[s] > 0 and r.prefill_progress >= len(r.prompt):
+                # the slot's full-page prefix span is now immutable KV:
+                # publish it so later same-prefix prompts hit
+                self.kv.publish_prefix(s, r.prompt)
                 tok = int(nxt[s])
                 if r.first_token_time is None:
                     r.first_token_time = self.clock
@@ -549,20 +593,25 @@ class InferenceEngine:
                     max(1, cfg.max_len - 1 - int(self.pos[s])))
         return 1 << (k.bit_length() - 1)
 
+    def _fits(self, grow: dict) -> bool:
+        """Whether the pool can give every active slot ``s`` room for
+        ``grow[s]`` more tokens (capped at max_len).  Unreferenced
+        cached prefix pages count as free: ``ensure`` evicts them on
+        demand when the reservation is drawn down."""
+        ps = self.cfg.page_size
+        need = 0
+        for s in self.active:
+            tgt = min(int(self.pos[s]) + grow[s], self.cfg.max_len)
+            need += max(0, -(-tgt // ps) - self.kv.n_pages_held(s))
+        return need <= self.kv.n_available_pages
+
     def _fit_block_k(self, k: int) -> int:
         """Halve K until pre-reserving pages for K new tokens per active
-        slot fits the free pool; at 1 the preempt-youngest fallback
-        takes over."""
-        ps = self.cfg.page_size
-        while k > 1:
-            need = 0
-            for s in self.active:
-                tgt = min(int(self.pos[s]) + k, self.cfg.max_len)
-                need += max(0, -(-tgt // ps) - self.kv.n_pages_held(s))
-            if need <= self.kv.n_free_pages:
-                return k
+        slot fits the pool; at 1 the preempt-youngest fallback takes
+        over."""
+        while k > 1 and not self._fits(dict.fromkeys(self.active, k)):
             k //= 2
-        return 1
+        return k
 
     def _device_state(self) -> tuple:
         """(last_token, pos) on the device: the previous block's final
@@ -575,12 +624,13 @@ class InferenceEngine:
 
     def warm_decode_blocks(self) -> None:
         """Run one decode block per power-of-two K up to ``decode_block``
-        with an all-frozen batch, outputs discarded — the counterpart of
-        the JAX engine's compile-ahead, so that first launches and
-        allocations land in no measured step.  For an idle engine: a
-        frozen paged row drops its writes, but a frozen slot-plane row
-        rewrites its position-0 entry, so the slot plane's rows are
-        cleared afterwards."""
+        and, with speculation on, one verify pass per power-of-two
+        proposal width up to ``max_spec_len``, with an all-frozen batch,
+        outputs discarded — the counterpart of the JAX engine's
+        compile-ahead, so that first launches and allocations land in no
+        measured step.  For an idle engine: a frozen paged row drops its
+        writes, but a frozen slot-plane row rewrites its position-0
+        entry, so the slot plane's rows are cleared afterwards."""
         if self.queue or self.active or self.prefilling or self.parked:
             raise RuntimeError("warm_decode_blocks needs an idle engine")
         cfg = self.cfg
@@ -596,9 +646,158 @@ class InferenceEngine:
                 self.model.decode_block_slots(self.caches, *state, k=k)
             self._sync()
             k *= 2
+        if cfg.spec_decode:
+            # verify dispatches land in pow2 proposal-width buckets
+            k = 1
+            while True:
+                props = self._tensor(np.zeros((cfg.n_slots, k), np.int32))
+                self.model.spec_decode_block(
+                    self.caches, self.kv.device_table(), *state, props,
+                    zeros, k=k)
+                self._sync()
+                if k >= cfg.max_spec_len:
+                    break
+                k *= 2
         if not self.paged:
             self.caches = clear_rows(self.caches, self.axes,
                                      list(range(cfg.n_slots)))
+
+    def _spec_history(self, r: Request) -> list[int]:
+        """The request's true token sequence (prompt + generated).
+        After a recompute preemption the prompt already contains the
+        pre-preemption output, so slice to the original l_in."""
+        n_in = r.l_in or len(r.prompt)
+        return [int(t) for t in r.prompt[:n_in]] + [
+            int(t) for t in r.generated
+        ]
+
+    def _spec_decode_step(self) -> Optional[dict]:
+        """One propose-verify-accept speculative dispatch (paged plane).
+
+        Per active lane: the SLO controller picks a depth from the
+        request's TPOT slack, the n-gram drafter fills it (possibly with
+        fewer tokens, possibly none — a zero-proposal lane rides along
+        as a plain 1-token decode), one ``spec_decode_block`` scores
+        everything, and rejected lanes' KV is rolled back by truncating
+        the page table to the accepted position.  Returns None when
+        nothing proposes or the page pool cannot cover the proposals
+        even at depth 1 — the caller falls through to the plain
+        block/per-token path.
+        """
+        cfg = self.cfg
+        cur_lens = [int(self.pos[s]) for s in self.active]
+        plen: dict[int, int] = {}
+        drafts: dict[int, list[int]] = {}
+        want_of: dict[int, int] = {}    # controller depth (telemetry)
+        for s, r in self.active.items():
+            cap = min(
+                self._spec_cfg.max_spec_len,
+                r.l_out - len(r.generated) - 1,   # lane 0 emits one
+                cfg.max_len - 1 - int(self.pos[s]),  # KV write room
+            )
+            want = min(
+                slo_spec_len(r.tpot_slo, self.profiler, cur_lens,
+                             self._spec_cfg),
+                cap,
+            )
+            want_of[s] = want
+            d = self.drafter.propose(self._spec_history(r), want)
+            drafts[s] = d
+            plen[s] = len(d)
+        if not any(plen.values()):
+            return None
+        # pre-reserve pages for every lane's verify writes (positions
+        # pos .. pos+plen); halve all depths until the pool fits
+        while not self._fits({s: p + 1 for s, p in plen.items()}):
+            plen = {s: p // 2 for s, p in plen.items()}
+            if not any(plen.values()):
+                return None
+        for s in self.active:
+            ok = self.kv.ensure(
+                s, min(int(self.pos[s]) + plen[s] + 1, cfg.max_len)
+            )
+            assert ok, "spec reservation failed after availability check"
+
+        kmax = max(plen.values())
+        kpad = 1 << (kmax - 1).bit_length()  # pow2 width bucket
+        props = np.zeros((cfg.n_slots, kpad), np.int32)
+        prop_lens = np.zeros(cfg.n_slots, np.int32)
+        alive = np.zeros(cfg.n_slots, bool)
+        rem = np.zeros(cfg.n_slots, np.int32)
+        pos0: dict[int, int] = {}
+        for s, r in self.active.items():
+            alive[s] = True
+            rem[s] = r.l_out - len(r.generated)
+            pos0[s] = int(self.pos[s])
+            d = drafts[s][: plen[s]]
+            props[s, : len(d)] = d
+            prop_lens[s] = len(d)
+
+        last_d, pos_d = self._device_state()
+        eos = -1 if cfg.eos_token is None else cfg.eos_token
+        t0 = time.perf_counter()
+        (toks, valid, last_f, pos_f), self.caches = (
+            self.model.spec_decode_block(
+                self.caches, self.kv.device_table(), last_d, pos_d,
+                self._tensor(alive), self._tensor(rem), eos, cfg.max_len,
+                self._tensor(props), self._tensor(prop_lens), k=kpad))
+        self._sync()
+        dt = time.perf_counter() - t0
+        tk = toks.cpu().numpy()    # (n_slots, kpad+1)
+        vd = valid.cpu().numpy()   # (n_slots, kpad+1) bool
+        self.clock += dt
+        self.n_dispatches += 1
+        self.n_spec_dispatches += 1
+        self.spec_depth_hist[kpad] = self.spec_depth_hist.get(kpad, 0) + 1
+        self._dev_state = (last_f, pos_f)
+        self._host_state_dirty = False
+
+        t_start = self.clock - dt
+        finish_at: dict[int, float] = {}
+        tok_ev: list[tuple] = []
+        n_emitted = 0
+        for s, r in self.active.items():
+            lanes = np.nonzero(vd[s])[0]
+            emitted = [int(tk[s][i]) for i in lanes]
+            accepted = max(0, len(emitted) - 1)
+            self.n_spec_proposed += int(prop_lens[s])
+            self.n_spec_accepted += accepted
+            st = self.spec_task_stats.setdefault(
+                r.task or "default",
+                {"lanes": 0, "sum_want": 0, "sum_k": 0, "accepted": 0},
+            )
+            st["lanes"] += 1
+            st["sum_want"] += want_of[s]   # controller's chosen depth
+            st["sum_k"] += int(prop_lens[s])
+            st["accepted"] += accepted
+            if not emitted:
+                continue
+            r.generated.extend(emitted)
+            r.tokens_done = len(r.generated)
+            self.pos[s] += len(emitted)
+            self.last_token[s] = emitted[-1]
+            n_emitted += len(emitted)
+            for tok, lane in zip(emitted, lanes):
+                tok_ev.append(
+                    (r.rid, tok, t_start + dt * (lane + 1) / (kpad + 1))
+                )
+            last_lane = int(lanes[-1])
+            finish_at[s] = t_start + dt * (last_lane + 1) / (kpad + 1)
+            # rollback: rejected lanes' KV past the accepted position
+            # is dead weight — give whole pages back to the pool
+            self.kv.truncate(s, int(self.pos[s]))
+        # accepted-only Appendix-A attribution: trailing all-rejected
+        # lanes are trimmed by observe_decode_block, so rejected
+        # speculation never biases the Eq. 2 fit low
+        self.profiler.observe_decode_block(
+            [[pos0[s] + i for s in sorted(pos0) if vd[s, i]]
+             for i in range(kpad + 1)], dt,
+        )
+        self.n_decode_tokens += n_emitted
+        self._retire(finish_at)
+        return {"kind": "decode", "n": len(pos0), "k": kpad + 1,
+                "tokens": n_emitted, "time": dt, "spec": True,
+                "token_events": tok_ev}
 
     def _decode_block_step(self, k: int) -> dict:
         """One fused K-iteration decode block: one dispatch and one host
@@ -663,6 +862,14 @@ class InferenceEngine:
 
     def _decode_paged(self) -> dict:
         cfg = self.cfg
+        if (cfg.spec_decode and self.active
+                and not self.prefilling and not self.queue):
+            # speculate only when decode owns the step (pending prefill
+            # keeps the Eq. 5 chunk/decode interleave, same as the
+            # decode-block collapse-to-1 rule)
+            ev = self._spec_decode_step()
+            if ev is not None:
+                return ev
         k = self._fit_block_k(self._decode_block_k())
         # page pre-reservation: every active slot gets room for K new
         # tokens; at K == 1 preempt-youngest reclaims pages

@@ -8,8 +8,11 @@ A pool of fixed-size pages is shared by all sequences.
 ``t % page_size``) and grows / reclaims them as requests prefill,
 decode and retire.  The allocator and tables are host-side numpy, as in
 the JAX package; :meth:`PagedKVManager.device_table` hands the table to
-the model as a torch tensor.  Prefix caching and speculative rollback
-(``truncate``) come with their ROADMAP item.
+the model as a torch tensor.  A
+:class:`~repro_torch.serving.prefix_cache.PrefixCache` attached to the
+manager shares refcounted prefix pages between slot tables
+(``lookup_prefix`` / ``publish_prefix``); ``truncate`` is the
+speculative-decode rollback.
 
 On the slot plane each sequence owns one batch row of every cache
 leaf: :func:`insert_rows` copies a prefill's rows in and
@@ -122,6 +125,9 @@ class PagedKVManager:
         self.device = resolve_device(device)
         self.dirty = True
         self._table_dev: Optional[torch.Tensor] = None
+        # optional PrefixCache (attach_prefix_cache): shared prefix
+        # pages referenced by slot tables, refcounted by the cache
+        self.prefix = None
 
     @property
     def n_pages(self) -> int:
@@ -130,6 +136,59 @@ class PagedKVManager:
     @property
     def n_free_pages(self) -> int:
         return self.alloc.n_free
+
+    @property
+    def n_available_pages(self) -> int:
+        """Pages a new allocation could obtain: the free list plus
+        cached-but-unreferenced prefix pages (evictable on demand)."""
+        free = self.alloc.n_free
+        if self.prefix is not None:
+            free += self.prefix.n_reclaimable
+        return free
+
+    # -- prefix cache (page-level KV reuse across requests) ------------------
+    def attach_prefix_cache(self, cache) -> None:
+        """Wire a :class:`~repro_torch.serving.prefix_cache.PrefixCache`
+        over this manager's allocator.  From here on ``release``
+        arbitrates each page with the cache (shared pages deref instead
+        of free) and ``ensure`` evicts unreferenced cached pages when the
+        free list runs dry."""
+        assert cache.alloc is self.alloc, (
+            "prefix cache must share this manager's PageAllocator"
+        )
+        self.prefix = cache
+
+    def lookup_prefix(self, slot: int, token_ids) -> int:
+        """Point a *fresh* slot's table at the longest cached prefix of
+        ``token_ids`` (pages pinned by the cache); returns the hit
+        length in tokens.  The engine then prefills from that offset —
+        all subsequent writes land in private pages past the shared
+        span (the hit is full-page-aligned by construction)."""
+        if self.prefix is None:
+            return 0
+        assert int(self._n_pages_of[slot]) == 0, (
+            f"lookup_prefix needs a fresh slot (slot {slot} holds pages)"
+        )
+        pages, hit = self.prefix.lookup(token_ids)
+        if pages:
+            self.table[slot, : len(pages)] = pages
+            self._n_pages_of[slot] = len(pages)
+            self.dirty = True
+        return hit
+
+    def publish_prefix(self, slot: int, token_ids) -> int:
+        """Register a prefill-complete slot's full-page prefix span in
+        the cache; returns pages newly published."""
+        if self.prefix is None:
+            return 0
+        return self.prefix.publish(self.pages_of(slot), token_ids)
+
+    def peek_prefix(self, token_ids) -> int:
+        """Hit length a lookup would return — read-only (the admission
+        path budgets with this)."""
+        if self.prefix is None or token_ids is None:
+            return 0
+        return self.prefix.peek(token_ids)
 
     def pages_of(self, slot: int) -> list[int]:
         return [int(p) for p in
@@ -140,7 +199,8 @@ class PagedKVManager:
 
     def device_table(self) -> torch.Tensor:
         """The page table as an int32 tensor on the device, re-uploaded
-        only when ``ensure``/``release`` changed it."""
+        only when ``ensure`` / ``release`` / ``lookup_prefix`` /
+        ``truncate`` changed it."""
         if self._table_dev is None or self.dirty:
             self._table_dev = torch.as_tensor(self.table, device=self.device)
             self.dirty = False
@@ -156,6 +216,12 @@ class PagedKVManager:
         if need <= have:
             return True
         got = self.alloc.alloc(need - have, owner=slot)
+        if got is None and self.prefix is not None:
+            # free list dry but unreferenced cached pages exist: evict
+            # LRU prefix pages back into the pool and retry once
+            short = (need - have) - self.alloc.n_free
+            if self.prefix.evict(short) >= short:
+                got = self.alloc.alloc(need - have, owner=slot)
         if got is None:
             return False
         self.table[slot, have:need] = got
@@ -163,13 +229,41 @@ class PagedKVManager:
         self.dirty = True
         return True
 
+    def _drop_page(self, page: int) -> None:
+        """One table entry goes: a shared prefix page derefs (the cache
+        decides when the allocator gets it back); a private page frees
+        now."""
+        if self.prefix is not None and self.prefix.release_page(page):
+            return
+        self.alloc.free([page])
+
     def release(self, slot: int) -> None:
         n = int(self._n_pages_of[slot])
         if n:
-            self.alloc.free([int(p) for p in self.table[slot, :n]])
+            for p in self.table[slot, :n]:
+                self._drop_page(int(p))
             self.dirty = True
         self.table[slot, :] = -1
         self._n_pages_of[slot] = 0
+
+    def truncate(self, slot: int, n_tokens: int) -> int:
+        """Shrink slot's table to cover exactly ``n_tokens`` — the
+        speculative-decode rollback: pages wholly past the accepted
+        length go back to the pool (prefix-shared pages deref, exactly
+        like :meth:`release`).  Returns pages freed.  A prefix-cache
+        hit span is full-page-aligned and the engine never truncates
+        below the resident position, so pinned prefix pages are only
+        ever touched via the same deref arbitration as release."""
+        need = -(-n_tokens // self.page_size) if n_tokens > 0 else 0
+        have = int(self._n_pages_of[slot])
+        if need >= have:
+            return 0
+        for p in self.table[slot, need:have]:
+            self._drop_page(int(p))
+        self.table[slot, need:have] = -1
+        self._n_pages_of[slot] = need
+        self.dirty = True
+        return have - need
 
 
 # ---------------------------------------------------------------------------

@@ -280,7 +280,7 @@ def test_backend_protocol_satisfied_by_engine_plane(seed_params):
     assert isinstance(ew, Backend) and isinstance(ew, WorkerBase)
     snap = ew.snapshot(0.0, 0.5)
     assert snap.wid == ew.wid and snap.utilization == 0.5
-    # no prefix cache on the port's engine: the Dispatcher sees no hit
+    # no prefix cache configured: the Dispatcher sees no hit
     r = Request.from_prompt(0, _prompt(), max_new=2)
     assert ew.engine.prefix is None and ew.prefix_peek(r) == 0
 

@@ -185,15 +185,15 @@ def test_export_import_across_page_sizes_and_mid_decode():
     assert r.generated == want
 
 
-def test_engine_refuses_what_is_not_ported():
-    """Not ported yet: prefix cache and spec decode on the paged plane
-    (NotImplementedError, naming the ROADMAP item).  Refused on the slot
-    plane exactly as the JAX engine refuses them: ``paged=True`` on
-    gemma3, prefix cache and spec decode (ValueError), P/D export and
-    import (RuntimeError), ``kv_bytes_of`` (None)."""
+def test_engine_refuses_what_the_jax_engine_refuses():
+    """Refused on the slot plane exactly as the JAX engine refuses them:
+    ``paged=True`` on gemma3, prefix cache and spec decode (ValueError,
+    word for word), P/D export and import (RuntimeError),
+    ``kv_bytes_of`` (None); and requests the engine could never serve.
+    On the paged plane both features run (tests/test_torch_prefix_cache.py,
+    tests/test_torch_spec_decode.py)."""
     for kw in (dict(prefix_cache=True), dict(spec_decode=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            InferenceEngine(MODEL, EngineConfig(**kw))
+        assert InferenceEngine(MODEL, EngineConfig(**kw)).paged
     for model, jmodel, jparams, kw in (
         (GEMMA, GEMMA_JMODEL, GEMMA_JPARAMS, dict(paged=True)),
         (GEMMA, GEMMA_JMODEL, GEMMA_JPARAMS, dict(prefix_cache=True)),

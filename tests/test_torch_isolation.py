@@ -15,6 +15,7 @@ from repro_torch.distributed.checkpoint import (  # noqa: E402
     load_latest,
     save_checkpoint,
 )
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.build import Model  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -67,3 +68,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch,
         load_latest(str(tmp_path), tree)
     got, _ = load_checkpoint(str(tmp_path), 0, tree, device="cpu")
     assert got["w"].device.type == "cpu" and torch.equal(got["w"], tree["w"])
+    # the serve launcher's engine plane: CUDA unless --device names another
+    argv = ["--backend", "engine", "--smoke", "--workers", "1",
+            "--n-per-task", "1", "--engine-max-len", "48",
+            "--clip-prompt", "8", "--clip-output", "2", "--json"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(argv)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main([*argv, "--device", "cuda"])
