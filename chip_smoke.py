@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
-``build/kernels/``), then runs thirteen phases, each printing a JSON line
-(``hybrid`` a second one for its hand-off, ``parity`` one per model):
+``build/kernels/``), then runs fifteen phases, each printing a JSON line
+(``hybrid`` and ``moe`` a second one for their hand-offs, ``parity`` one
+per model):
 
 1. ``device``  — the card, its power limit and the kernel build time;
    then ``tensor_cores``: for the flash-attention and SSD libraries,
@@ -119,6 +120,21 @@ Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
    (32 output tokens).  Tokens must be identical; at a divergence the
    plain run's top-2 logit margin there must be under 2e-4 (the
    ``parity`` tolerance), or the phase fails.
+14. ``moe``     — olmoe-1b-7b at full width in bf16 (16 layers, d 2048,
+   64 experts, top-8; 6.9 B parameters) serving ``serve``'s 16 requests
+   on the paged plane: every request must finish, the paged decode
+   kernel run 16 times per C == 1 pass and no other kernel (the experts
+   are batched GEMMs over a capacity buffer, as in the JAX package).
+   Prints the share of dropped expert assignments over the phase's MoE
+   calls and the device time of one decode pass's MoE FFN (every
+   expert weight read once) against its bound; then ``moe_pd`` (the
+   ``pd`` checks) and a ``parity`` line for a 2-layer full-width olmoe
+   in f32 (within 2e-4).
+15. ``qwen32b`` — qwen32b at full width in bf16 (64 layers, d 5120, 40
+   heads over 8 KV heads of 128, QKV bias; 32.5 B parameters, 65 GB),
+   alone on the card after every other model is freed, serving
+   ``serve``'s 16 requests on the paged plane (the ``serve`` checks);
+   prints the peak memory of the weights' init and of the serving run.
 
 Then it prints the card's ``nvidia-smi`` name and power limit, one JSON
 line with every kernel's numbers, and, last,
@@ -129,10 +145,12 @@ no CUDA card is visible or when it is run outside the repository.
     python3 chip_smoke.py --profile
 
 instead traces, with ``torch.profiler``, one prefill step and two
-decode blocks of each full-width engine (qwen7b on the paged plane,
-gemma3-4b and mamba2-2.7b on the slot plane), writes the gzipped
+decode blocks of each full-width engine (qwen7b, olmoe-1b-7b and
+qwen32b on the paged plane, gemma3-4b and mamba2-2.7b on the slot
+plane), writes the gzipped
 chrome traces to ``build/profile/`` and prints the device's busy time,
-idle share and kernel time by name for each window.
+idle share, kernel time by name and the CUDA runtime's synchronize and
+memcpy calls for each window.
 """
 
 from __future__ import annotations
@@ -144,6 +162,7 @@ import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -814,23 +833,40 @@ def c1_passes(engine) -> int:
     return sum(k * n for k, n in engine.decode_block_hist.items())
 
 
-def serve_phase(torch, dev, model, init_s: float):
+def serve_phase(torch, dev, model, init_s: float, phase: str = "serve",
+                **extra):
+    """``serve``'s 16 requests on the paged plane (qwen7b; ``qwen32b``
+    the same on qwen32b): every request served, the paged decode kernel
+    once per layer and C == 1 pass, no other kernel."""
     from repro_torch.serving.engine import EngineConfig, InferenceEngine
 
     cfg = model.cfg
     engine = InferenceEngine(model, EngineConfig(**ENGINE))
+    check(engine.paged, f"{phase}: the engine did not take the paged plane")
     reqs = table1_requests(cfg.vocab_size)
-    out = drive(torch, engine, reqs, "serve")
+    out = drive(torch, engine, reqs, phase)
     launches, passes = out["launches"], out["c1_passes"]
     check(launches["paged_decode_attention"] == cfg.n_layers * passes,
           f"decode-attention launches {launches['paged_decode_attention']}"
           f" != {cfg.n_layers} x {passes} C==1 passes")
-    check(launches["page_gather"] == 0, "serve phase exported KV")
-    out.update(engine=ENGINE, init_s=init_s)
+    others = {k: n for k, n in launches.items()
+              if k != "paged_decode_attention" and n}
+    check(not others, f"the {phase} phase ran other kernels: {others}")
+    out.update(engine=ENGINE, init_s=init_s, **c1_pass_times(out), **extra)
     emit(out)
     del engine
     torch.cuda.empty_cache()
     return out
+
+
+def c1_pass_times(out: dict) -> dict:
+    """Mean time of one C == 1 pass of a serving phase's decode steps:
+    the engine's measured time and the CUDA events' (the phase runs no
+    speculation, so every decode step is C == 1 passes)."""
+    n = max(out["c1_passes"], 1)
+    decode_s = out["time_by_kind_s"].get("decode", 0.0)
+    return {"c1_pass_ms": 1e3 * decode_s / n,
+            "c1_pass_gpu_ms": out["gpu_ms_by_kind"].get("decode", 0.0) / n}
 
 
 def drive(torch, engine, reqs, phase: str) -> dict:
@@ -1645,6 +1681,91 @@ def hybrid_phase(torch, dev, model, init_s: float):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: olmoe-1b-7b (MoE) on the paged plane
+# ---------------------------------------------------------------------------
+
+
+def moe_phase(torch, dev, model, init_s: float):
+    """``serve``'s 16 requests on olmoe: every request served, the paged
+    decode kernel 16 times per C == 1 pass and no other kernel (MoE
+    experts are plain batched GEMMs, as in the JAX package).  Records
+    every MoE call's dropped assignments (capacity counts every row of
+    the call: idle slots and padding lanes route too) and times one
+    decode pass's MoE FFN against its bound."""
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    cfg = model.cfg
+    engine = InferenceEngine(model, EngineConfig(**ENGINE))
+    check(engine.paged, "moe: the engine did not take the paged plane")
+    drops = []             # (dropped, assignments) of each MoE call
+    ffn = moe.moe_ffn
+
+    def recording_ffn(params, x, c):
+        y, aux = ffn(params, x, c)
+        n = x.shape[0] * x.shape[1] * c.moe.top_k
+        drops.append((aux["drop_frac"] * n, n))
+        return y, aux
+
+    moe.moe_ffn = recording_ffn
+    try:
+        out = drive(torch, engine, table1_requests(cfg.vocab_size), "moe")
+    finally:
+        moe.moe_ffn = ffn
+    launches, passes = out["launches"], out["c1_passes"]
+    check(launches["paged_decode_attention"] == model.n_attn * passes,
+          f"moe: decode-attention launches "
+          f"{launches['paged_decode_attention']} != {model.n_attn} x "
+          f"{passes} C==1 passes")
+    others = {k: n for k, n in launches.items()
+              if k != "paged_decode_attention" and n}
+    check(not others, f"the moe phase ran other kernels: {others}")
+    dropped = float(torch.stack([d for d, _ in drops]).sum())
+    out.update(engine=ENGINE, init_s=init_s, **c1_pass_times(out),
+               experts=cfg.moe.num_experts, top_k=cfg.moe.top_k,
+               capacity_factor=cfg.moe.capacity_factor,
+               active_params=cfg.active_param_count(),
+               moe_calls=len(drops),
+               drop_frac=dropped / sum(n for _, n in drops),
+               decode_moe_ffn=moe_ffn_timing(torch, dev, model))
+    emit(out)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_ffn_timing(torch, dev, model) -> dict:
+    """Device time of one decode pass's MoE FFN — every layer's
+    ``moe_ffn`` on (n_slots, 1, d) hidden states — against its bound.
+    The capacity buffer runs every expert on every call (capacity 8
+    rows each at 8 slots), so the pass reads every expert weight once:
+    bytes = the MoE weights and the hidden states in and out; operations
+    = the router and the buffer's E x C rows through the SwiGLU."""
+    from repro_torch.models import moe
+
+    cfg = model.cfg
+    m, d = cfg.moe, cfg.d_model
+    b = ENGINE["n_slots"]
+    h = torch.randn(b, 1, d, generator=torch.Generator(device=dev)
+                    .manual_seed(SEED + 12), device=dev).to(model.dtype)
+    params = [blk.moe for kind, blk, _, _ in model.blocks() if kind == "moe"]
+
+    def run():
+        for p in params:
+            moe.moe_ffn(p, h, cfg)
+
+    cap = moe.capacity(cfg, b)
+    item = h.element_size()
+    n_bytes = sum(sum(t.numel() for t in p.values()) * item + 2 * h.numel()
+                  * item for p in params)
+    flops = len(params) * (2 * b * d * m.num_experts
+                           + m.num_experts * cap * 6 * d * m.expert_d_ff)
+    return {"layers": len(params), "rows": b, "capacity": cap,
+            "ms": device_ms(torch, run), "event_ms": cuda_ms(torch, run, 10),
+            **bound_row(n_bytes, flops, BF16_FLOPS_PER_S)}
+
+
+# ---------------------------------------------------------------------------
 # phases 12-13: kernel path vs plain path, the features on and off, f32
 # ---------------------------------------------------------------------------
 
@@ -1891,8 +2012,9 @@ def feature_parity_phase(torch, dev, cfg) -> dict:
 
 
 def trace_summary(path: Path, wall_s: float) -> dict:
-    """Device busy time (union of kernel intervals), kernel time by name
-    and launch count from a chrome trace of ``torch.profiler``."""
+    """Device busy time (union of kernel intervals), kernel time by name,
+    launch count and the CUDA runtime's synchronize and memcpy calls by
+    name from a chrome trace of ``torch.profiler``."""
     with gzip.open(path, "rt") as f:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
@@ -1912,6 +2034,9 @@ def trace_summary(path: Path, wall_s: float) -> dict:
             "idle_share": 1.0 - busy / 1e3 / (1e3 * wall_s),
             "n_kernels": len(kernels),
             "n_cpu_ops": sum(e.get("cat") == "cpu_op" for e in events),
+            "sync_and_copy_calls": dict(Counter(
+                e["name"] for e in events if e.get("cat") == "cuda_runtime"
+                and ("Synchronize" in e["name"] or "Memcpy" in e["name"]))),
             "top_kernels_ms": {k: {"ms": v[0], "n": v[1]} for k, v in top}}
 
 
@@ -2002,7 +2127,9 @@ def main() -> int:
     if "--profile" in sys.argv[1:]:
         for name, engine_kw, l_in in (("qwen7b", ENGINE, 512),
                                       ("gemma3-4b", SLOT_ENGINE, 1100),
-                                      ("mamba2-2.7b", MAMBA_ENGINE, 1100)):
+                                      ("mamba2-2.7b", MAMBA_ENGINE, 1100),
+                                      ("olmoe-1b-7b", ENGINE, 512),
+                                      ("qwen32b", ENGINE, 512)):
             model, _ = load(name)
             profile_phase(torch, dev, model, engine_kw, l_in,
                           ROOT / "build" / "profile")
@@ -2043,13 +2170,29 @@ def main() -> int:
     slot_parity_phase(torch, dev, get_config("zamba2-7b"), 7,
                       SSM_PARITY_L_IN, SSM_PARITY_TOL, SEED + 10)
     feature_parity = feature_parity_phase(torch, dev, get_config("qwen7b"))
+    model, init_s = load("olmoe-1b-7b")
+    moe_out = moe_phase(torch, dev, model, init_s)
+    moe_pd = pd_phase(torch, dev, model, "moe_pd")
+    del model
+    torch.cuda.empty_cache()
+    parity_phase(torch, dev, get_config("olmoe-1b-7b"))
+    # qwen32b's 65 GB of bf16 weights need the card to itself: every
+    # other model is gone by now
+    torch.cuda.reset_peak_memory_stats()
+    model, init_s = load("qwen32b")
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    qwen32b = serve_phase(torch, dev, model, init_s, "qwen32b",
+                          init_peak_mem_gb=init_peak_gb)
+    del model
+    torch.cuda.empty_cache()
 
     # launches: the main paths' runs, each with the counts set to 0 just
     # before it (the kernels phase's comparisons are not counted)
     main_paths = {"serve": serve, "pd": pd, "prefix": prefix, "spec": spec,
                   "cluster": cluster, "cluster_pd": cluster_pd, "slot": slot,
                   "mamba": mamba, "hybrid": hybrid, "hybrid_pd": hybrid_pd,
-                  "feature_parity": feature_parity}
+                  "feature_parity": feature_parity, "moe": moe_out,
+                  "moe_pd": moe_pd, "qwen32b": qwen32b}
     csrc = "src/repro_torch/kernels/csrc"
     kernels = []
     for name, replaces in (

@@ -1,16 +1,33 @@
 """Architecture registry of the port.
 
-It holds only what the port runs, at full width (:func:`get_config`)
-and as reduced CPU variants (:func:`get_smoke_config`): ``qwen7b`` (the
-paged plane), ``gemma3-4b`` (local windows, so the slot plane),
+It holds every decoder of the JAX package's registry, field for field,
+at full width (:func:`get_config`) and as reduced CPU variants
+(:func:`get_smoke_config`): the dense GQA transformers (``qwen7b``,
+``qwen32b``, ``llama70b``, ``qwen2.5-14b``, ``internlm2-20b``,
+``command-r-plus-104b`` and ``chameleon-34b``, whose VQ image tokens
+share the text vocabulary), ``gemma3-4b`` (local windows, so the slot
+plane), the MoE models ``olmoe-1b-7b`` and ``phi3.5-moe-42b-a6.6b``,
 ``mamba2-2.7b`` (Mamba-2 SSD layers) and ``zamba2-7b`` (Mamba-2 with a
-weight-shared attention block), the last two on both planes.  Other
-architectures join as their ROADMAP items land.
+weight-shared attention block).  The encoder ``hubert-xlarge`` joins
+with its ROADMAP item.
 """
 
 from __future__ import annotations
 
-from repro_torch.configs import gemma3_4b, mamba2_2p7b, qwen7b, zamba2_7b
+from repro_torch.configs import (
+    chameleon_34b,
+    command_r_plus_104b,
+    gemma3_4b,
+    internlm2_20b,
+    llama70b,
+    mamba2_2p7b,
+    olmoe_1b_7b,
+    phi3p5_moe_42b,
+    qwen2p5_14b,
+    qwen7b,
+    qwen32b,
+    zamba2_7b,
+)
 from repro_torch.configs.base import (
     ModelConfig,
     MoEConfig,
@@ -19,10 +36,18 @@ from repro_torch.configs.base import (
 )
 
 REGISTRY: dict[str, ModelConfig] = {
-    "qwen7b": qwen7b.CONFIG,
-    "gemma3-4b": gemma3_4b.CONFIG,
     "mamba2-2.7b": mamba2_2p7b.CONFIG,
+    "olmoe-1b-7b": olmoe_1b_7b.CONFIG,
+    "phi3.5-moe-42b-a6.6b": phi3p5_moe_42b.CONFIG,
+    "chameleon-34b": chameleon_34b.CONFIG,
+    "gemma3-4b": gemma3_4b.CONFIG,
+    "command-r-plus-104b": command_r_plus_104b.CONFIG,
+    "qwen2.5-14b": qwen2p5_14b.CONFIG,
+    "internlm2-20b": internlm2_20b.CONFIG,
     "zamba2-7b": zamba2_7b.CONFIG,
+    "qwen7b": qwen7b.CONFIG,
+    "qwen32b": qwen32b.CONFIG,
+    "llama70b": llama70b.CONFIG,
 }
 
 

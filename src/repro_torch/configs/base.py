@@ -12,10 +12,9 @@ hyper-parameters plus the *layer pattern* the model builder reads:
 - ``encoder``      — bidirectional (non-causal) attention block
 
 A model is a sequence of *segments* ``(kind, count)``.  The port's
-``models/build.py`` runs the ``dense``, ``local``, ``global``,
-``mamba`` and ``shared_attn`` kinds; the others raise until their
-ROADMAP items land, but the config keeps every field so those slices
-need no schema change.
+``models/build.py`` runs every kind but ``encoder``, which raises
+until its ROADMAP item lands; the config keeps every field so that
+slice needs no schema change.
 """
 
 from __future__ import annotations

@@ -2,11 +2,15 @@
 
 :class:`Model` is an ``nn.Module`` for configs whose layers are pre-norm
 GQA attention + SwiGLU FFN blocks of kind ``dense``, ``local``
-(sliding-window attention) or ``global``, Mamba-2 blocks (``mamba``),
-and invocations of one weight-shared attention block (``shared_attn``)
-— qwen7b's one dense segment, gemma3's 5:1 local:global pattern,
-mamba2's 64 Mamba-2 layers and zamba2's 13 x (5 Mamba-2 + the shared
-block) + 3.  It offers the JAX ``Model``'s API for both engine planes:
+(sliding-window attention) or ``global``, pre-norm GQA attention + a
+top-k mixture-of-experts FFN (``moe``, :mod:`repro_torch.models.moe`),
+Mamba-2 blocks (``mamba``), and invocations of one weight-shared
+attention block (``shared_attn``) — the dense decoders' one segment,
+olmoe's and phi3.5-moe's one MoE segment, gemma3's 5:1 local:global
+pattern, mamba2's 64 Mamba-2 layers and zamba2's 13 x (5 Mamba-2 + the
+shared block) + 3.  The ``token+vq`` frontend (chameleon's VQ image
+tokens in the text vocabulary) is the plain token path, as in JAX.  It
+offers the JAX ``Model``'s API for both engine planes:
 
 - the paged plane: ``chunk_step`` (chunked prefill and decode over a
   paged KV pool), ``decode_block`` (K fused greedy decode iterations),
@@ -17,8 +21,8 @@ block) + 3.  It offers the JAX ``Model``'s API for both engine planes:
   ``cache_axes``;
 - the ``supports_*`` properties.
 
-Other segment kinds (``moe``, ``encoder``) raise ``NotImplementedError``
-naming their ROADMAP item.
+The ``encoder`` kind and the ``frames`` frontend (hubert) raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Layout: the JAX package stacks per-layer parameters by segment (and by
 group and inner kind for periodic patterns, see
@@ -71,15 +75,13 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import attention as attn
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, moe
 from repro_torch.models.common import embed, init_dense, rms_norm, swiglu
 
-# segment kinds the port does not run yet -> the ROADMAP item that adds them
-_LATER = {
-    "moe": "ROADMAP.md §1 'MoE'",
-    "encoder": "ROADMAP.md §1 'Encoder and frames frontend'",
-}
-PORTED_KINDS = ("dense", "local", "global", "mamba", "shared_attn")
+# the segment kind the port does not run yet, and its ROADMAP item
+_ENCODER_ITEM = "ROADMAP.md §1 'Encoder and frames frontend'"
+PORTED_KINDS = ("dense", "moe", "local", "global", "mamba", "shared_attn")
+FRONTENDS = ("token", "token+vq")   # token+vq: VQ ids in the text vocab
 MAMBA_LEAVES = ("conv_x", "conv_bc", "ssm")  # a Mamba-2 layer's cache
 
 
@@ -88,14 +90,14 @@ def _param(*shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
-class DenseBlock(nn.Module):
-    """One pre-norm attention + SwiGLU layer; parameters as in the JAX
-    tree (``attn``: wq wk wv wo [bq bk bv]; ``ffn``: w_gate w_up w_down;
-    ``ln1``/``ln2`` RMSNorm scales)."""
+class AttnBlock(nn.Module):
+    """The pre-norm attention half of a layer; parameters as in the JAX
+    tree (``attn``: wq wk wv wo [bq bk bv]; ``ln1``/``ln2`` RMSNorm
+    scales)."""
 
     def __init__(self, cfg: ModelConfig, dtype, device):
         super().__init__()
-        d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+        d, hd = cfg.d_model, cfg.resolved_head_dim
         qd, kvd = cfg.n_heads * hd, cfg.n_kv_heads * hd
         kw = dict(dtype=dtype, device=device)
         shapes = {"wq": (d, qd), "wk": (d, kvd), "wv": (d, kvd),
@@ -104,12 +106,35 @@ class DenseBlock(nn.Module):
             shapes.update(bq=(qd,), bk=(kvd,), bv=(kvd,))
         self.attn = nn.ParameterDict(
             {n: _param(*s, **kw) for n, s in shapes.items()})
+        self.ln1 = _param(d, **kw)
+        self.ln2 = _param(d, **kw)
+
+
+class DenseBlock(AttnBlock):
+    """One pre-norm attention + SwiGLU layer (``ffn``: w_gate w_up
+    w_down)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__(cfg, dtype, device)
+        d, f = cfg.d_model, cfg.d_ff
+        kw = dict(dtype=dtype, device=device)
         self.ffn = nn.ParameterDict({
             "w_gate": _param(d, f, **kw), "w_up": _param(d, f, **kw),
             "w_down": _param(f, d, **kw),
         })
-        self.ln1 = _param(d, **kw)
-        self.ln2 = _param(d, **kw)
+
+
+class MoEBlock(AttnBlock):
+    """One pre-norm attention + mixture-of-experts layer (``moe``:
+    w_router w_gate w_up w_down, the shapes of
+    ``moe.moe_param_shapes``)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__(cfg, dtype, device)
+        kw = dict(dtype=dtype, device=device)
+        self.moe = nn.ParameterDict({
+            n: _param(*s, **kw)
+            for n, s in moe.moe_param_shapes(cfg).items()})
 
 
 class MambaBlock(nn.Module):
@@ -163,12 +188,12 @@ class Model(nn.Module):
             if k not in PORTED_KINDS:
                 raise NotImplementedError(
                     f"{cfg.name}: '{k}' segments are not ported yet "
-                    f"({_LATER.get(k, 'ROADMAP.md §1')})"
+                    f"({_ENCODER_ITEM})"
                 )
-        if cfg.frontend != "token":
+        if cfg.frontend not in FRONTENDS:
             raise NotImplementedError(
                 f"{cfg.name}: the '{cfg.frontend}' frontend is not ported "
-                f"yet ({_LATER['encoder']})"
+                f"yet ({_ENCODER_ITEM})"
             )
         self.cfg = cfg
         self.dtype = dtype
@@ -192,28 +217,31 @@ class Model(nn.Module):
         self.shared = (DenseBlock(cfg, dtype, self.device)
                        if "shared_attn" in kinds else None)
         # a shared_attn position holds no parameters: it runs self.shared
+        block = {"mamba": MambaBlock, "moe": MoEBlock}
         self.layers = nn.ModuleList(
-            MambaBlock(cfg, dtype, self.device) if k == "mamba"
-            else nn.Identity() if k == "shared_attn"
-            else DenseBlock(cfg, dtype, self.device) for k in kinds)
+            nn.Identity() if k == "shared_attn"
+            else block.get(k, DenseBlock)(cfg, dtype, self.device)
+            for k in kinds)
 
     # -- init ---------------------------------------------------------------
     def init(self, generator: torch.Generator) -> "Model":
         """Draw every weight from the JAX package's init distribution
         (``repro/models/common.py::init_dense``: normal, std
-        1/sqrt(fan_in)); biases and norm scales stay zero.  The numbers
-        differ from JAX's for the same seed — tests load JAX's weights
-        through ``convert.params_from_jax`` instead."""
+        1/sqrt(fan_in)); biases and norm scales stay zero.  Each tensor
+        is filled in place, through an f32 draw of that tensor alone.  The
+        numbers differ from JAX's for the same seed — tests load JAX's
+        weights through ``convert.params_from_jax`` instead."""
         init_dense(self.embed, generator)
         if self.head is not None:
             init_dense(self.head, generator)
         for blk in [*self.layers, self.shared]:
             if isinstance(blk, MambaBlock):
                 _init_mamba(blk, generator)
-            elif isinstance(blk, DenseBlock):
+            elif isinstance(blk, AttnBlock):
                 for name in ("wq", "wk", "wv", "wo"):
                     init_dense(blk.attn[name], generator)
-                for w in blk.ffn.values():
+                ffn = blk.moe if isinstance(blk, MoEBlock) else blk.ffn
+                for w in ffn.values():
                     init_dense(w, generator)
         return self
 
@@ -244,20 +272,25 @@ class Model(nn.Module):
         return self.supports_prefix_cache
 
     # -- forward --------------------------------------------------------------
-    def _mlp_out(self, blk: DenseBlock, x, ctx):
-        """Attention output projection, residual, then the FFN half."""
+    def _mlp_out(self, blk: AttnBlock, x, ctx):
+        """Attention output projection, residual, then the FFN half: the
+        SwiGLU, or the MoE FFN over every row of the call (padding lanes
+        and idle slots route and take capacity, as in JAX; its aux is
+        dropped, as the JAX serving paths drop it)."""
         b, s = x.shape[:2]
         ctx = ctx.transpose(1, 2).reshape(b, s, -1)
         x = x + ctx @ blk.attn["wo"]
         h = rms_norm(x, blk.ln2, self.cfg.norm_eps)
+        if isinstance(blk, MoEBlock):
+            return x + moe.moe_ffn(blk.moe, h, self.cfg)[0]
         f = blk.ffn
         return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
 
-    def _qkv(self, blk: DenseBlock, x, positions):
+    def _qkv(self, blk: AttnBlock, x, positions):
         h = rms_norm(x, blk.ln1, self.cfg.norm_eps)
         return attn.project_qkv(blk.attn, h, self.cfg, positions=positions)
 
-    def _paged_layer(self, blk: DenseBlock, x, *, positions, kv_len,
+    def _paged_layer(self, blk: AttnBlock, x, *, positions, kv_len,
                      k_pages, v_pages, page_table, index):
         cfg = self.cfg
         s = x.shape[1]
@@ -276,7 +309,7 @@ class Model(nn.Module):
             )
         return self._mlp_out(blk, x, ctx)
 
-    def _prefill_layer(self, blk: DenseBlock, x, window: int, *, positions,
+    def _prefill_layer(self, blk: AttnBlock, x, window: int, *, positions,
                        lens, cache_len: int):
         """One layer of a monolithic prefill; returns (x, its slot
         cache).  Right padding needs no ``lens`` on the kernel route:
@@ -294,7 +327,7 @@ class Model(nn.Module):
         return self._mlp_out(blk, x, ctx), _build_cache(k, v, lens, window,
                                                          cache_len)
 
-    def _decode_layer(self, blk: DenseBlock, x, window: int, cache: dict, *,
+    def _decode_layer(self, blk: AttnBlock, x, window: int, cache: dict, *,
                       pos, lens):
         """One layer of a slot-plane decode step; writes the new token
         into ``cache`` in place."""

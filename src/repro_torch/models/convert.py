@@ -33,8 +33,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 # part of a block -> its depth (0: a leaf; 1: a dict of leaves)
-_BLOCK_PARTS = {"ln1": 0, "ln2": 0, "attn": 1, "ffn": 1, "ln": 0,
-                "mamba": 1}
+_BLOCK_PARTS = {"ln1": 0, "ln2": 0, "attn": 1, "ffn": 1, "moe": 1,
+                "ln": 0, "mamba": 1}
 
 
 def build_segments(cfg: ModelConfig) -> list[tuple]:

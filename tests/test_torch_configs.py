@@ -1,0 +1,113 @@
+"""The port's architecture registry against the JAX package's: every
+decoder config equal field for field (full width and smoke), the same
+parameter counts, and the port's ``Model`` laid out at full width as
+``convert.param_shapes_from_jax`` maps the JAX tree's shapes
+(``jax.eval_shape``: nothing is materialized; the port's side is built
+on the meta device).  The encoder-only hubert stays out of the registry
+and refuses to build.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import REGISTRY as JAX_REGISTRY  # noqa: E402
+from repro.configs import get_config as jax_config  # noqa: E402
+from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
+from repro.models import build_model as jax_build  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    REGISTRY,
+    get_config,
+    get_smoke_config,
+)
+from repro_torch.configs.base import ModelConfig  # noqa: E402
+from repro_torch.models.build import Model  # noqa: E402
+from repro_torch.models.convert import (  # noqa: E402
+    param_shapes_from_jax,
+    params_from_jax,
+)
+
+DECODERS = sorted(n for n, c in JAX_REGISTRY.items() if c.causal)
+NEW = ["qwen32b", "llama70b", "qwen2.5-14b", "internlm2-20b",
+       "command-r-plus-104b", "chameleon-34b", "olmoe-1b-7b",
+       "phi3.5-moe-42b-a6.6b"]
+
+
+def test_registry_holds_every_jax_decoder():
+    assert len(DECODERS) == 12
+    assert sorted(REGISTRY) == DECODERS
+    assert set(NEW) < set(REGISTRY)
+
+
+@pytest.mark.parametrize("name", DECODERS)
+def test_config_equals_jax_field_for_field(name):
+    """Full width and smoke: the same fields and values, ``source``
+    included (the MoE and SSM sub-configs compared as dicts); the same
+    layer pattern, parameter count and active parameter count."""
+    for got, jcfg in ((get_config(name), jax_config(name)),
+                      (get_smoke_config(name), jax_smoke(name))):
+        assert dataclasses.asdict(got) == {
+            f.name: (dataclasses.asdict(getattr(jcfg, f.name))
+                     if dataclasses.is_dataclass(getattr(jcfg, f.name))
+                     else getattr(jcfg, f.name))
+            for f in dataclasses.fields(ModelConfig)}
+        assert got.layer_pattern() == jcfg.layer_pattern()
+        assert got.param_count() == jcfg.param_count()
+        assert got.active_param_count() == jcfg.active_param_count()
+    assert get_config(name).source != ""
+
+
+@pytest.mark.parametrize("name", NEW)
+def test_full_width_layout_maps_from_jax_shapes(name):
+    """The JAX tree of the full-width config maps onto the port's
+    parameters one for one, shape for shape, and counts
+    ``param_count()`` (qwen32b 32.5 B, olmoe 6.9 B, command-r-plus
+    104 B: shapes only)."""
+    cfg = get_config(name)
+    tree = jax.eval_shape(jax_build(jax_config(name)).init,
+                          jax.random.key(0))
+    shapes = param_shapes_from_jax(tree, cfg)
+    model = Model(cfg, device="meta")
+    assert shapes == {k: tuple(v.shape)
+                      for k, v in model.state_dict().items()}
+    assert sum(int(np.prod(s)) for s in shapes.values()) == cfg.param_count()
+    assert model.kinds == ["moe" if cfg.moe else "dense"] * cfg.n_layers
+    assert cfg.resolved_head_dim == 128
+
+
+def test_chameleon_token_vq_frontend_is_the_token_path():
+    """chameleon's ``token+vq`` frontend (VQ image ids in the text
+    vocabulary) builds and prefills as the plain token path, with the
+    JAX model's logits on the same weights."""
+    cfg = get_smoke_config("chameleon-34b")
+    assert cfg.frontend == "token+vq"
+    jm = jax_build(jax_smoke("chameleon-34b"))
+    jp = jm.init(jax.random.key(7))
+    model = Model(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp), cfg))
+    toks = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 11))
+    toks = toks.astype(np.int32)
+    lens = np.array([11, 6], np.int32)
+    want, _ = jm.prefill(jp, jnp.asarray(toks), jnp.asarray(lens))
+    got, _ = model.prefill(torch.as_tensor(toks), torch.as_tensor(lens))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=1e-4)
+    assert model.supports_prefix_cache and model.supports_spec_decode
+
+
+def test_hubert_stays_out_and_refuses_to_build():
+    """The encoder-only hubert is not in the port's registry, and its
+    config still refuses to build, naming its ROADMAP item."""
+    assert "hubert-xlarge" not in REGISTRY
+    for jcfg in (jax_config("hubert-xlarge"), jax_smoke("hubert-xlarge")):
+        fields = {f.name: getattr(jcfg, f.name)
+                  for f in dataclasses.fields(ModelConfig)}
+        with pytest.raises(NotImplementedError,
+                           match="Encoder and frames frontend"):
+            Model(ModelConfig(**fields), device="meta")

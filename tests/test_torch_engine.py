@@ -2,15 +2,18 @@
 weights: token-for-token generation on the paged plane across page and
 chunk sizes, under preemption and through the P/D export/import round
 trip; on the slot plane for gemma3 (picked by itself) and qwen7b
-(``paged=False``) with per-token and fused decode; plus the allocator
-and slot-row invariants on the port's own copy and the engine's
-refusals.
+(``paged=False``) with per-token and fused decode; the SSM and hybrid
+on both planes; olmoe (MoE) on both planes and through a P/D
+hand-off, with and without capacity drops; qwen2.5-14b and chameleon
+on the paged plane; plus the allocator and slot-row invariants on the
+port's own copy and the engine's refusals.
 
 f32 on the CPU.  Greedy tokens must be identical: both engines
 schedule deterministically (no profiler fit in these runs), so the
 same requests see the same chunks, blocks and preemptions.
 """
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -591,3 +594,114 @@ def test_mamba_and_zamba_engines_refuse_prefix_cache_and_spec_decode():
             with pytest.raises(ValueError) as got:
                 InferenceEngine(model, EngineConfig(**kw))
             assert str(got.value) == str(want.value)
+
+
+# ---------------------------------------------------------------------------
+# MoE (olmoe-1b-7b) on both planes; dense qwen2.5-14b and chameleon-34b
+# ---------------------------------------------------------------------------
+
+# "jax_test": the capacity factor tests/test_decode_consistency.py takes
+# (8: nothing drops); "default": olmoe's 1.25, where assignments drop and
+# every row of a call (idle slots and padding lanes too) takes capacity,
+# so tokens equal JAX's only if both engines batch the same rows alike
+CAPACITY = {"jax_test": 8.0, "default": None}
+_FAM: dict = {}
+
+
+def _fam(arch, capacity="default"):
+    """(port model, JAX model, JAX params, JAX fn_cache) on the same
+    weights (JAX's for key 3)."""
+    key = (arch, capacity)
+    if key not in _FAM:
+        cfg, jcfg = get_smoke_config(arch), jax_smoke(arch)
+        if CAPACITY[capacity] is not None:
+            cfg, jcfg = (dataclasses.replace(c, moe=dataclasses.replace(
+                c.moe, capacity_factor=CAPACITY[capacity]))
+                for c in (cfg, jcfg))
+        jm = jax_build(jcfg)
+        jp = jm.init(jax.random.key(3))
+        m = Model(cfg, device="cpu")
+        m.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jp), cfg))
+        _FAM[key] = (m, jm, jp, {})
+    return _FAM[key]
+
+
+@pytest.mark.parametrize("capacity", list(CAPACITY))
+@pytest.mark.parametrize("paged", [True, False])
+def test_moe_engine_tokens_match_jax(paged, capacity):
+    """olmoe token for token with the JAX engine, and the same schedule,
+    on the paged plane (chunks of 8 over pages of 4) and the slot plane
+    (``paged=False``), with fused decode blocks of 8; 3 slots for 6
+    requests, so rows are released and reused."""
+    model, jm, jp, fc = _fam("olmoe-1b-7b", capacity)
+    prompts = _prompts(11, (13, 5, 21, 9, 3, 17))
+    max_new = [6, 9, 4, 12, 5, 7]
+    ekw = dict(n_slots=3, max_len=64, prefill_batch=2, paged=paged,
+               page_size=4, chunk_size=8, decode_block=8)
+    eng = InferenceEngine(model, EngineConfig(**ekw))
+    jeng = JEngine(jm, jp, JEngineConfig(**ekw), fn_cache=fc)
+    assert eng.paged is jeng.paged is paged
+    got = _serve(eng, Request.from_prompt, prompts, max_new)
+    want = _serve(jeng, JRequest.from_prompt, prompts, max_new)
+    assert got == want
+    assert [len(g) for g in got] == max_new
+    assert eng.decode_block_hist == jeng.decode_block_hist
+    assert eng.n_dispatches == jeng.n_dispatches
+    assert eng.n_prefill_tokens == jeng.n_prefill_tokens
+    if paged:
+        assert eng.kv.n_free_pages == eng.kv.n_pages
+
+
+@pytest.mark.parametrize("capacity", list(CAPACITY))
+def test_moe_export_import_matches_jax(capacity):
+    """P/D hand-off of olmoe: prefill on A (pages of 8), export, evict,
+    import on B (pages of 4) — in both packages; the port's tokens equal
+    JAX's hand-off and the port's colocated run, and ``kv_bytes_of``
+    equals the payload's bytes."""
+    model, jm, jp, fc = _fam("olmoe-1b-7b", capacity)
+    prompt = ((np.arange(1, 21, dtype=np.int32) * 3) % 256).astype(np.int32)
+    ekw = dict(n_slots=2, max_len=48, prefill_batch=2, chunk_size=16)
+    colocated = _serve(InferenceEngine(model, EngineConfig(
+        page_size=8, **ekw)), Request.from_prompt, [prompt], [6])[0]
+    out = []
+    for make_eng, make_req in (
+        (lambda ps: InferenceEngine(model, EngineConfig(page_size=ps,
+                                                        **ekw)),
+         Request.from_prompt),
+        (lambda ps: JEngine(jm, jp, JEngineConfig(page_size=ps, **ekw),
+                            fn_cache=fc), JRequest.from_prompt),
+    ):
+        a = make_eng(8)
+        a.park_on_prefill = True
+        r = make_req(0, prompt.copy(), 6)
+        a.submit(r)
+        a.run_until_done()
+        payload = a.export_kv(0)
+        assert a.kv_bytes_of(0) == payload.nbytes
+        a.evict(r.slot)
+        b = make_eng(4)
+        assert b.import_kv(payload, r)
+        b.run_until_done()
+        assert b.kv.n_free_pages == b.kv.n_pages
+        out.append(list(r.generated))
+    assert out[0] == out[1] == colocated
+    assert len(colocated) == 6
+
+
+@pytest.mark.parametrize("arch", ["qwen2.5-14b", "chameleon-34b"])
+def test_dense_family_engine_tokens_match_jax(arch):
+    """qwen2.5-14b (GQA 4:1 with QKV bias at smoke size) and chameleon
+    (``token+vq``: the token path) on the paged plane, token for token
+    with the JAX engine and the same schedule, with per-token decode."""
+    model, jm, jp, fc = _fam(arch)
+    prompts = _prompts(5, (13, 5, 21, 9))
+    max_new = [6, 9, 4, 7]
+    ekw = dict(n_slots=2, max_len=40, prefill_batch=2, page_size=4,
+               chunk_size=8)
+    eng = InferenceEngine(model, EngineConfig(**ekw))
+    jeng = JEngine(jm, jp, JEngineConfig(**ekw), fn_cache=fc)
+    assert eng.paged is jeng.paged is True
+    got = _serve(eng, Request.from_prompt, prompts, max_new)
+    assert got == _serve(jeng, JRequest.from_prompt, prompts, max_new)
+    assert eng.decode_block_hist == jeng.decode_block_hist
+    assert eng.n_dispatches == jeng.n_dispatches

@@ -6,7 +6,11 @@ width, from shapes alone), ``chunk_step`` logits and ``decode_block``
 tokens on the paged plane, ``prefill`` / ``decode_step`` logits and
 caches and ``decode_block_slots`` tokens on the slot plane, chunked
 against monolithic prefill for the SSM and the hybrid, and the
-capability flags and refusals.
+capability flags and refusals.  Every decoder family of
+tests/test_decode_consistency.py (dense with QKV bias, gemma3, mamba2,
+zamba2, MoE, chameleon, command-r-plus): prefill + ``decode_step``
+against JAX's full-sequence ``forward``, and chunked prefill against
+monolithic and JAX's ``chunk_step`` for qwen2.5-14b and olmoe.
 
 f32 on the CPU.  Logits tolerance 1e-4: the two frameworks sum the
 same f32 products in another order, through up to 13 layers and a
@@ -326,10 +330,11 @@ def test_supports_flags_and_refusals_mirror_jax():
     """The port's capability flags equal the JAX Model's for qwen7b
     (paged plane), gemma3 (slot plane only: its sliding-window layers
     refuse paged caches), mamba2 and zamba2 (both planes; no prefix
-    cache or spec decode, their SSM state being slot-resident); the
-    kinds not ported yet (MoE, encoder) refuse to build, naming their
-    ROADMAP item.  (mamba2 and zamba2 refused to build before they were
-    ported; their parity tests are below.)"""
+    cache or spec decode, their SSM state being slot-resident), olmoe
+    (MoE layers: every flag, as in JAX); the kind not ported yet
+    (encoder: hubert) refuses to build, naming its ROADMAP item.
+    (mamba2, zamba2 and MoE refused to build before they were ported;
+    their parity tests are below and in tests/test_torch_moe.py.)"""
     flags = ("supports_chunked", "supports_prefix_cache",
              "supports_spec_decode")
     model = _port_model()
@@ -345,12 +350,14 @@ def test_supports_flags_and_refusals_mirror_jax():
         port, jm = _ssm_port(arch), _ssm(arch)[1]
         assert [getattr(port, f) for f in flags] == [
             getattr(jm, f) for f in flags] == [True, False, False]
-    for arch in ("olmoe-1b-7b", "hubert-xlarge"):
-        jcfg = jax_smoke(arch)
-        fields = {f.name: getattr(jcfg, f.name)
-                  for f in dataclasses.fields(ModelConfig)}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(ModelConfig(**fields), device="cpu")
+    olmoe, jolmoe = _fam_port("olmoe-1b-7b"), _fam("olmoe-1b-7b")[1]
+    assert [getattr(olmoe, f) for f in flags] == [
+        getattr(jolmoe, f) for f in flags] == [True, True, True]
+    jcfg = jax_smoke("hubert-xlarge")
+    fields = {f.name: getattr(jcfg, f.name)
+              for f in dataclasses.fields(ModelConfig)}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Model(ModelConfig(**fields), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -585,3 +592,101 @@ def test_ssm_chunked_prefill_matches_monolithic_and_jax(arch, chunk):
         for name, w in zip(("conv_x", "conv_bc", "ssm"), layer[i]):
             np.testing.assert_allclose(state[name][r, :2].numpy(), w[:2],
                                        rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Every decoder family (mirrors tests/test_decode_consistency.py)
+# ---------------------------------------------------------------------------
+
+FAMS = ["qwen2.5-14b", "gemma3-4b", "mamba2-2.7b", "zamba2-7b",
+        "olmoe-1b-7b", "chameleon-34b", "command-r-plus-104b"]
+CHUNK_FAMS = ["qwen2.5-14b", "olmoe-1b-7b"]
+
+
+def _nodrop(cfg):
+    """A capacity factor of 8 (as the JAX test takes): no assignment
+    drops, so a token's MoE output does not depend on the rest of the
+    call, and monolithic, chunked and full-sequence runs agree."""
+    if cfg.moe is None:
+        return cfg
+    return dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+
+
+@functools.lru_cache(maxsize=None)
+def _fam(arch):
+    """(port cfg, JAX model, JAX params, numpy tree) of the no-drop
+    smoke config, JAX weights for key 1."""
+    cfg, jcfg = _nodrop(get_smoke_config(arch)), _nodrop(jax_smoke(arch))
+    jm = jax_build(jcfg)
+    jp = jm.init(jax.random.key(1))
+    return cfg, jm, jp, jax.tree.map(np.asarray, jp)
+
+
+def _fam_port(arch):
+    cfg, _, _, tree = _fam(arch)
+    m = Model(cfg, device="cpu")
+    m.load_state_dict(params_from_jax(tree, cfg))
+    return m
+
+
+@pytest.mark.parametrize("arch", FAMS)
+def test_prefill_and_decode_match_jax_forward(arch):
+    """The port's prefill of 20 tokens, then 6 ``decode_step``s, give
+    the logits of JAX's full-sequence ``forward`` over the 26 tokens at
+    each position, within 1e-4 (the port has no ``forward`` yet: it
+    comes with training)."""
+    cfg, jm, jp, _ = _fam(arch)
+    model = _fam_port(arch)
+    b, s, t = 2, 20, 6
+    toks = np.array(jax.random.randint(jax.random.key(2), (b, s + t), 0,
+                                       cfg.vocab_size), np.int32)
+    full = np.asarray(jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)}))
+    lens = torch.full((b,), s, dtype=torch.int32)
+    got, caches = model.prefill(torch.as_tensor(toks[:, :s]), lens,
+                                cache_len=s + t)
+    errs = [float(np.abs(got.numpy() - full[:, s - 1]).max())]
+    for i in range(t):
+        got, caches = model.decode_step(
+            caches, torch.as_tensor(toks[:, s + i]), lens + i)
+        errs.append(float(np.abs(got.numpy() - full[:, s + i]).max()))
+    assert max(errs) < 1e-4, errs
+
+
+@pytest.mark.parametrize("chunk", [3, 8])
+@pytest.mark.parametrize("arch", CHUNK_FAMS)
+def test_chunked_prefill_matches_monolithic_and_jax_new_families(arch,
+                                                                 chunk):
+    """Prefilling 13 tokens in chunks through the paged plane gives each
+    chunk's logits of JAX's ``chunk_step`` and, at the end, monolithic
+    prefill's last-token logits, within 1e-4 (dense with QKV bias, and
+    MoE with a row of chunk length 0 riding along)."""
+    cfg, jm, jp, _ = _fam(arch)
+    model = _fam_port(arch)
+    b, s, max_len, ps = 3, 13, 32, 4
+    toks = np.random.default_rng(chunk).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+    lens = np.array([s, s, 0], np.int32)          # row 2 idles
+    want, _ = model.prefill(torch.as_tensor(toks[:2]),
+                            torch.as_tensor(lens[:2]), cache_len=max_len)
+    kv = PagedKVManager(b, max_len, ps, device="cpu")
+    for i in range(2):
+        assert kv.ensure(i, s)
+    jc = jm.init_paged_cache(b, max_len, ps, kv.n_pages)
+    tc = model.init_paged_cache(b, max_len, ps, kv.n_pages)
+    jstep = jax.jit(jm.chunk_step)
+    for start in range(0, s, chunk):
+        c = min(chunk, s - start)
+        tk = np.zeros((b, chunk), np.int32)
+        tk[:, :c] = toks[:, start:start + c]
+        args = (kv.table, tk, np.full(b, start, np.int32),
+                np.where(lens > 0, c, 0).astype(np.int32))
+        lj, jc = jstep(jp, jc, *map(jnp.asarray, args))
+        lt, tc = model.chunk_step(tc, *map(torch.as_tensor, args))
+        np.testing.assert_allclose(lt.numpy()[:2], np.asarray(lj)[:2],
+                                   rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(lt.numpy()[:2], want.numpy(), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(tc[0]["k_pages"].numpy(),
+                               np.asarray(jc[0]["k_pages"]), rtol=1e-4,
+                               atol=1e-4)

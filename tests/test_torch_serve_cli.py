@@ -91,14 +91,32 @@ ENGINE = ["--backend", "engine", "--model", "qwen7b", "--smoke",
           "--chunk-size", "16", "--seed", str(SEED), "--policy", "rr"]
 
 
+@pytest.fixture
+def unfitted_profilers(monkeypatch):
+    """Both packages' latency profilers stay unfitted: ``fit`` keeps
+    the coefficients it has and reports no fit.  The engine-plane
+    Cluster's profiler is the Dispatcher's model and every engine's
+    (refitted from measured step times at each monitor tick); once
+    fitted, ``slo_spec_len`` prices the speculation depth from those
+    times (``slack = tpot_slo - e_d``), so on a loaded host the two
+    packages could choose different depths."""
+    from repro.core import latency_model as jlatency
+    from repro_torch.core import latency_model as latency
+
+    for mod in (jlatency, latency):
+        monkeypatch.setattr(mod.FittedLatencyModel, "fit",
+                            lambda self, min_samples=8: False)
+
+
 def test_engine_plane_prefix_cache_and_spec_decode_match_jax(
-        jax_weights, monkeypatch, capsys):
+        jax_weights, unfitted_profilers, monkeypatch, capsys):
     """Shared-prefix traffic at 0.02 req/s with 8 output tokens (each
-    request served long before the next arrives, so no schedule depends
-    on measured step times) with the prefix cache and speculation at
-    depth 2 (the controller's unfitted depth, so the profiler's fit
-    cannot move it): the same requests served, hit tokens and
-    speculation counters."""
+    request served long before the next arrives) with the prefix cache
+    and speculation at most 2 deep: the same requests served, hit
+    tokens and speculation counters.  The profilers stay unfitted in
+    both packages (``unfitted_profilers``), so every lane speculates at
+    ``SpecConfig.unfitted_default`` (2) and neither the depth nor the
+    chunk budget depends on measured step times."""
     argv = ENGINE + ["--workload", "shared-prefix", "--prefix-len", "16",
                      "--n-per-task", "2", "--qps", "0.02", "--clip-output",
                      "8", "--prefix-cache", "--spec-decode",
