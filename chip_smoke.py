@@ -4,21 +4,23 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
-``build/kernels/``), then runs fifteen phases, each printing a JSON line
-(``hybrid`` and ``moe`` a second one for their hand-offs, ``parity`` one
-per model):
+``build/kernels/``), then runs seventeen phases, each printing a JSON
+line (``hybrid`` and ``moe`` a second one for their hand-offs,
+``parity`` one per model):
 
 1. ``device``  — the card, its power limit and the kernel build time;
    then ``tensor_cores``: for the flash-attention and SSD libraries,
    ptxas's registers and spills of each tensor-core kernel and the
    HGMMA (wgmma) instructions ``cuobjdump -sass`` finds (none, or no
-   cuobjdump, fails the run); then ``decode_ring``: ptxas's registers
+   cuobjdump, fails the run), with the D 80 flash instance's under
+   ``d80``; then ``decode_ring``: ptxas's registers
    and spills of each instance of the contiguous decode kernel's ring.
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card (``rtol = atol =`` 2e-5 in f32 with TF32 off, 2e-2 in bf16, the
    gather exactly, SSD 2e-3 in f32 as tests/test_kernels.py holds it)
    at the shapes the main paths give it, plus a ragged and a
-   bidirectional flash case, ``kv_len == 0`` decode rows, the three
+   bidirectional flash case, hubert's bidirectional D 80 flash (B 8, 16
+   heads, S 1024 and a ragged 1000), ``kv_len == 0`` decode rows, the three
    attention kernels at zamba2's head dim 112, SSD batches with pad
    rows and RMSNorm at mamba2's norm shapes; each timed (device time
    from ``torch.profiler``'s events; the kernel also with CUDA events
@@ -69,7 +71,7 @@ per model):
    qwen7b in bf16 (seed weights drawn on the card, offloaded to the
    host and checkpointed under ``build/weights/``, then dropped): 2
    colocated replicas provisioned from the host copy, the HyperFlexis
-   policy, the Scaler on (at most 3 replicas, d2d weights) and the
+   policy, the Scaler on (2 to 3 replicas, d2d weights) and the
    H100's latency constants, serving 24 Table-1 requests with Poisson
    arrivals (4 req/s).  First each transport provisions the whole tree
    once and is timed (d2d from replica 0 — twice, the second time into
@@ -79,7 +81,8 @@ per model):
    starts the run as a deployment would.  Every request must finish
    with its ``l_out`` tokens, the paged decode kernel run 32 times per
    C == 1 pass summed over the replicas, no page gather run, the
-   replicas' weights share no storage and the peak memory stay under
+   replicas' weights share no storage (two at least still hold
+   weights, a scaled-in one none) and the peak memory stay under
    75 GB.  TTFT, TPOT and attainment are read on the cluster's virtual
    clock, which overlaps the replicas' measured steps as if each had a
    card; ``makespan_over_wall`` says how far it ran ahead of this card.
@@ -130,7 +133,25 @@ per model):
    expert weight read once) against its bound; then ``moe_pd`` (the
    ``pd`` checks) and a ``parity`` line for a 2-layer full-width olmoe
    in f32 (within 2e-4).
-15. ``qwen32b`` — qwen32b at full width in bf16 (64 layers, d 5120, 40
+15. ``hubert`` — hubert-xlarge at full width in bf16 (48 bidirectional
+   encoder layers over frames, d 1280, 16 heads of 80; 1.26 B
+   parameters): one ``Model.forward`` over 8 x 1024 random frames, the
+   flash kernel exactly 48 times and nothing else, finite logits; its
+   wall and device time and peak memory; then a 2-layer full-width cut
+   in f32 (TF32 off), the kernel route against the plain route within
+   2e-4.
+16. ``train`` — ``TrainRunner`` on full-width hubert-xlarge in f32 (TF32
+   off), remat, the plain attention (no kernel has a backward, in
+   either package: no kernel may launch), batch 8 x 512 over 2
+   micro-batches, 6 steps: every loss and gradient norm finite, no step
+   skipped after the first; prints s/step, tokens/s, peak memory and
+   model TFLOP/s beside the f32 peak.  Then crash and resume (a
+   checkpoint every 2 steps under ``build/train_ckpt/``, a crash after
+   3, a resumed run to 6) on hubert cut to 4 layers at full width (a
+   1.27 GB checkpoint) and on the smoke qwen2.5-14b: history, final
+   parameters and optimizer state equal an uninterrupted run's bit for
+   bit, with deterministic algorithms on.
+17. ``qwen32b`` — qwen32b at full width in bf16 (64 layers, d 5120, 40
    heads over 8 KV heads of 128, QKV bias; 32.5 B parameters, 65 GB),
    alone on the card after every other model is freed, serving
    ``serve``'s 16 requests on the paged plane (the ``serve`` checks);
@@ -159,6 +180,7 @@ import dataclasses
 import gzip
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -204,6 +226,13 @@ SPEC_MAX_LEN = 8
 # feature_parity phase: the features on and off in f32, 2 layers
 FEATURE_ENGINE = dict(n_slots=4, max_len=2048, page_size=16, chunk_size=256)
 FEATURE_TOL = 2e-4
+# hubert phase: one forward over 8 x 1024 frames (bf16; the parity cut
+# in f32 over the same shape)
+HUBERT_FRAMES = (8, 1024)
+# train phase: full-width hubert-xlarge in f32, 8 x 512 frames over 2
+# micro-batches; crash/resume runs of 6 steps, crashing after 3
+TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS, RESUME_STEPS = (8, 512), 2, 6, 6
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
 
 
 def emit(obj) -> None:
@@ -441,6 +470,11 @@ def tensor_core_report(_build) -> dict:
         out[name] = {"hgmma": sum(hgmma.values()), "hgmma_by_function": hgmma,
                      "ptxas": ptxas or "built earlier: no ptxas report",
                      "ptxas_notes": notes}
+    # hubert's head dim: the D 80 instance, laid out as 128 columns
+    flash = out["flash_attention"]["ptxas"]
+    out["flash_attention"]["d80"] = (
+        {fn: v for fn, v in flash.items() if "flash_tc_kernelILi80E" in fn}
+        if isinstance(flash, dict) else flash)
     return out
 
 
@@ -531,11 +565,13 @@ def flash_pairs(s: int, causal: bool, window: int) -> int:
 
 def flash_kernel_rows(torch, dev):
     """Flash attention against its plain version at gemma3's prefill
-    shape (global and local layers) and qwen7b's, ragged S, narrow
-    windows and bidirectional cases in both dtypes (bf16 on the tensor-
-    core instance, f32 on the CUDA-core one); timed at gemma3's
-    local-layer shape, which 29 of its 34 layers run, beside the
-    CUDA-core instance on the same bf16 inputs (``fma_ms``)."""
+    shape (global and local layers), qwen7b's and hubert's (bidirectional,
+    D 80: 8 x 1024 frames, and a ragged 1000), ragged S, narrow windows
+    and bidirectional cases in both dtypes (bf16 on the tensor-core
+    instance, f32 on the CUDA-core one); timed at gemma3's local-layer
+    shape, which 29 of its 34 layers run, at zamba2's D 112 and at
+    hubert's two bf16 shapes, beside the CUDA-core instance on the same
+    bf16 inputs (``fma_ms``)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention, ref
@@ -559,6 +595,11 @@ def flash_kernel_rows(torch, dev):
          2e-2),
         ("qwen7b_window64_bf16", (2, 32, 32, 300, 128), True, 64, bf16,
          2e-2),
+        ("hubert_d80_bf16", (8, 16, 16, 1024, 80), False, 0, bf16, 2e-2),
+        ("hubert_d80_ragged1000_bf16", (8, 16, 16, 1000, 80), False, 0,
+         bf16, 2e-2),
+        ("hubert_d80_ragged300_f32", (2, 16, 16, 300, 80), False, 0, f32,
+         2e-5),
     ):
         g = torch.Generator(device=dev).manual_seed(s + d + window)
         q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
@@ -570,10 +611,13 @@ def flash_kernel_rows(torch, dev):
         cases[name] = compare(torch, got, want, tol, f"flash {name}")
         del got, want
         if name not in ("gemma3_global_bf16", "gemma3_local_bf16",
-                        "zamba2_d112_bf16"):
+                        "zamba2_d112_bf16", "hubert_d80_bf16",
+                        "hubert_d80_ragged1000_bf16"):
             continue
         pos = torch.arange(s, device=dev)
-        band = pos[None, :] <= pos[:, None]
+        band = None                  # bidirectional: every key
+        if causal:
+            band = pos[None, :] <= pos[:, None]
         if window:
             band &= (pos[:, None] - pos[None, :]) < window
         n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -1437,7 +1481,10 @@ def cluster_phase(torch, dev, phase: str) -> dict:
     pd = phase == "cluster_pd"
     layout = (dict(mode="pd", n_prefill=1, n_decode=1) if pd else
               dict(n_workers=2, scaling=True,
-                   scaler=ScalerConfig(max_workers=3,
+                   # a floor of 2: the Scaler may add a third replica
+                   # and take it back, but the phase always ends with
+                   # two live replicas whose storages it can compare
+                   scaler=ScalerConfig(max_workers=3, min_workers=2,
                                        weight_strategy="d2d")))
     cfg = ClusterConfig(model=get_config("qwen7b"), backend="engine",
                         policy="hyperflexis",
@@ -1486,13 +1533,20 @@ def cluster_phase(torch, dev, phase: str) -> dict:
               "a prefill worker ran a C == 1 pass")
     else:
         check(launches["page_gather"] == 0, "the cluster phase exported KV")
+    scaled_in = {wid for _, wid, ev in res.timeline if ev == "scale_in"}
+    for wid in scaled_in:
+        w = next(w for w in cluster.workers if w.wid == wid)
+        check(w.engine.model is None and not cluster.weights.owns(wid),
+              f"{phase}: replica {wid} scaled in but still holds weights")
     live = [w.engine.model for w in cluster.workers
             if w.engine.model is not None]
     seen: set = set()
     for ptrs in map(storages, live):
         check(not ptrs & seen, f"{phase}: two replicas share weights")
         seen |= ptrs
-    check(len(live) >= 2, f"{phase}: fewer than 2 replicas hold weights")
+    check(len(live) >= 2,
+          f"{phase}: {len(live)} replica(s) hold weights, fewer than 2 "
+          f"(scale-outs {res.n_scale_out}, scale-ins {res.n_scale_in})")
 
     m = res.metrics
     ttft = np.array([r.ttft for r in reqs])
@@ -1763,6 +1817,268 @@ def moe_ffn_timing(torch, dev, model) -> dict:
     return {"layers": len(params), "rows": b, "capacity": cap,
             "ms": device_ms(torch, run), "event_ms": cuda_ms(torch, run, 10),
             **bound_row(n_bytes, flops, BF16_FLOPS_PER_S)}
+
+
+# ---------------------------------------------------------------------------
+# phases 15-16: hubert-xlarge inferred and trained
+# ---------------------------------------------------------------------------
+
+
+def hubert_phase(torch, dev) -> dict:
+    """Full-width hubert-xlarge in bf16 (weights drawn on the card from
+    the seed): one ``Model.forward`` over 8 x 1024 random frames with the
+    launch counts set to 0 just before — the flash kernel (bidirectional,
+    D 80) exactly once per layer, nothing else, finite logits of the
+    expected shape — then its wall and device time and the peak memory;
+    then ``parity``: a 2-layer full-width cut in f32 (TF32 off), the
+    kernel route's logits against the plain route's within 2e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.build import Model
+
+    cfg = get_config("hubert-xlarge")
+    b, s = HUBERT_FRAMES
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, dtype=torch.bfloat16, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+    batch = {"frames": torch.randn(b, s, cfg.d_model, generator=g,
+                                   device=dev).to(torch.bfloat16)}
+
+    def forward():
+        with torch.no_grad():
+            return model.forward(batch)
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = forward()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(launches["flash_attention"] == cfg.n_layers,
+          f"hubert: {launches['flash_attention']} flash launches in one "
+          f"forward, not {cfg.n_layers}")
+    others = {k: n for k, n in launches.items()
+              if k != "flash_attention" and n}
+    check(not others, f"the hubert phase ran other kernels: {others}")
+    check(tuple(logits.shape) == (b, s, cfg.vocab_size),
+          f"hubert: logits {tuple(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "hubert: non-finite logits")
+    n = 3
+    t0 = time.perf_counter()
+    for _ in range(n):
+        forward()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    out = {"phase": "hubert", "model": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "head_dim": cfg.resolved_head_dim,
+           "dtype": "bfloat16", "params": cfg.param_count(),
+           "frames": [b, s], "init_s": init_s, "first_forward_s": first_s,
+           "forward_wall_ms": wall_ms,
+           "forward_device_ms": device_ms(torch, forward, 2),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches,
+           "logit_absmax": float(logits.float().abs().max())}
+    del model, logits, batch
+    torch.cuda.empty_cache()
+    out["parity"] = hubert_parity(torch, dev, cfg)
+    emit(out)
+    return out
+
+
+def hubert_parity(torch, dev, cfg) -> dict:
+    """hubert cut to 2 layers at full width, f32 with TF32 off: forward
+    logits through the flash kernel (its CUDA-core instance at D 80)
+    against the plain chunked attention on the same weights and frames,
+    within 2e-4."""
+    from repro_torch.models.build import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    small = dataclasses.replace(cfg, n_layers=2)
+    model = Model(small, dtype=torch.float32, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED + 15))
+    b, s = HUBERT_FRAMES
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+    batch = {"frames": torch.randn(b, s, cfg.d_model, generator=g,
+                                   device=dev)}
+    with torch.no_grad():
+        kernel = model.forward(batch)
+        model.use_kernels = False
+        plain = model.forward(batch)
+    torch.cuda.synchronize()
+    err = float((kernel - plain).abs().max())
+    check(err <= 2e-4, f"hubert: kernel vs plain logits differ by {err}")
+    out = {"n_layers": 2, "dtype": "float32", "frames": [b, s],
+           "max_abs_logit_err": err, "tol": 2e-4,
+           "logit_absmax": float(plain.abs().max())}
+    del model, kernel, plain
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_phase(torch, dev) -> dict:
+    """``TrainRunner`` on full-width hubert-xlarge in f32 (TF32 off,
+    stated), ``remat=True`` and the plain attention — JAX's training
+    route: no kernel has a backward —, batch 8 x 512 frames over 2
+    micro-batches, ``TRAIN_STEPS`` steps with the launch counts set to 0
+    just before: every loss and gradient norm finite, no step skipped
+    after the first, no kernel launched; prints s/step, tokens/s, peak
+    memory and model TFLOP/s (6 x params x tokens / step time) beside
+    the f32 peak.  Then crash and resume (``crash_resume``) on hubert cut
+    to 4 layers at full width and on the smoke qwen2.5-14b."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.distributed.fault_tolerance import (
+        RunnerConfig,
+        TrainRunner,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.models.build import Model
+    from repro_torch.training.data import DataConfig
+    from repro_torch.training.train_loop import TrainConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("hubert-xlarge")
+    b, s = TRAIN_BATCH
+    model = Model(cfg, device=dev, remat=True, use_kernels=False)
+    runner = TrainRunner(
+        model, DataConfig(batch=b, seq_len=s, seed=SEED),
+        TrainConfig(micro_batches=TRAIN_MICRO),
+        RunnerConfig(total_steps=TRAIN_STEPS, ckpt_every=10**9,
+                     ckpt_dir=str(TRAIN_CKPT / "unused"), log_every=1))
+    steps = []                 # (seconds, metrics) of each step
+    step_fn = runner.train_step
+
+    def timed_step(params, opt_state, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0,
+                      {k: float(v) for k, v in out[2].items()}))
+        return out
+
+    runner.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = runner.run(torch.Generator(device=dev).manual_seed(SEED))
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    check(len(steps) == TRAIN_STEPS, f"train: {len(steps)} steps run")
+    for i, (_, m) in enumerate(steps):
+        check(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]),
+              f"train: step {i + 1} loss {m['loss']} |g| {m['grad_norm']}")
+        check(i == 0 or m["skipped"] == 0.0, f"train: step {i + 1} skipped")
+    check(not any(launches.values()),
+          f"train: the plain training route launched kernels {launches}")
+    step_s = float(np.mean([t for t, _ in steps[1:]]))
+    tokens = b * s
+    flops = 6 * cfg.param_count() * tokens
+    out = {"phase": "train", "model": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "params": cfg.param_count(),
+           "dtype": "float32", "tf32": False, "remat": True,
+           "batch": [b, s], "micro_batches": TRAIN_MICRO,
+           "steps": TRAIN_STEPS, "wall_s": wall,
+           "step_s": [t for t, _ in steps],
+           "loss": [m["loss"] for _, m in steps],
+           "grad_norm": [m["grad_norm"] for _, m in steps],
+           "skipped": [m["skipped"] for _, m in steps],
+           "s_per_step": step_s, "tokens_per_s": tokens / step_s,
+           "model_tflops": flops / step_s / 1e12,
+           "peak_tflops": F32_FLOPS_PER_S / 1e12,
+           "peak_held_to": "f32 outside the tensor cores (TF32 off)",
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches}
+    del model, runner, result
+    torch.cuda.empty_cache()
+    out["crash_resume"] = [
+        crash_resume(torch, dev, dataclasses.replace(cfg, n_layers=4),
+                     DataConfig(batch=b, seq_len=s, seed=SEED)),
+        crash_resume(torch, dev, get_smoke_config("qwen2.5-14b"),
+                     DataConfig(batch=b, seq_len=64, seed=SEED))]
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    emit(out)
+    return out
+
+
+def crash_resume(torch, dev, cfg, data) -> dict:
+    """An uninterrupted run of ``RESUME_STEPS`` steps, then a run that
+    checkpoints every 2 steps and crashes after 3 (``crash_after``),
+    then a run that resumes from its latest checkpoint (step 2) to the
+    end: the resumed history, final parameters and optimizer state must
+    equal the uninterrupted run's bit for bit (tolerance 0), with
+    deterministic algorithms on for the three runs."""
+    from repro_torch.distributed.checkpoint import (
+        checkpoint_nbytes,
+        latest_step,
+    )
+    from repro_torch.distributed.fault_tolerance import (
+        InjectedFailure,
+        RunnerConfig,
+        TrainRunner,
+    )
+    from repro_torch.models.build import Model
+    from repro_torch.training.train_loop import TrainConfig
+
+    root = TRAIN_CKPT / cfg.name
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(ckpt_dir, ckpt_every, crash_after=None):
+        model = Model(cfg, device=dev, remat=True, use_kernels=False)
+        runner = TrainRunner(model, data,
+                             TrainConfig(micro_batches=TRAIN_MICRO),
+                             RunnerConfig(total_steps=RESUME_STEPS,
+                                          ckpt_every=ckpt_every,
+                                          ckpt_dir=str(ckpt_dir),
+                                          crash_after=crash_after,
+                                          log_every=1))
+        return runner.run(torch.Generator(device=dev).manual_seed(SEED))
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        t0 = time.perf_counter()
+        whole = run(root / "whole", 10**9)
+        crashed = False
+        try:
+            run(root / "resumed", 2, crash_after=3)
+        except InjectedFailure:
+            crashed = True
+        check(crashed, f"{cfg.name}: the run did not crash")
+        check(latest_step(str(root / "resumed")) == 2,
+              f"{cfg.name}: latest checkpoint "
+              f"{latest_step(str(root / 'resumed'))}, not 2")
+        ckpt_gb = checkpoint_nbytes(str(root / "resumed"), 2) / 1e9
+        resumed = run(root / "resumed", 2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    check(resumed["resumed_from"] == 2,
+          f"{cfg.name}: resumed from {resumed['resumed_from']}")
+    check(resumed["history"] == whole["history"][2:],
+          f"{cfg.name}: resumed history {resumed['history']} != "
+          f"{whole['history'][2:]}")
+    p1, p2 = whole["params"], resumed["params"]
+    s1, s2 = whole["opt_state"], resumed["opt_state"]
+    diffs = [float((p1[n].float() - p2[n].float()).abs().max()) for n in p1]
+    diffs += [float((a[n] - b[n]).abs().max())
+              for a, b in ((s1.mu, s2.mu), (s1.nu, s2.nu)) for n in a]
+    diffs.append(float((s1.norm_ema - s2.norm_ema).abs()))
+    check(max(diffs) == 0.0 and int(s1.step) == int(s2.step),
+          f"{cfg.name}: resumed state differs from the uninterrupted run's "
+          f"by {max(diffs)}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"model": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "batch": [data.batch, data.seq_len],
+            "steps": RESUME_STEPS, "crash_after": 3, "resumed_from": 2,
+            "checkpoint_gb": ckpt_gb, "max_abs_diff": max(diffs),
+            "tol": 0.0, "final_loss": resumed["final_loss"], "wall_s": wall}
 
 
 # ---------------------------------------------------------------------------
@@ -2176,6 +2492,8 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     parity_phase(torch, dev, get_config("olmoe-1b-7b"))
+    hubert = hubert_phase(torch, dev)
+    train = train_phase(torch, dev)
     # qwen32b's 65 GB of bf16 weights need the card to itself: every
     # other model is gone by now
     torch.cuda.reset_peak_memory_stats()
@@ -2192,7 +2510,8 @@ def main() -> int:
                   "cluster": cluster, "cluster_pd": cluster_pd, "slot": slot,
                   "mamba": mamba, "hybrid": hybrid, "hybrid_pd": hybrid_pd,
                   "feature_parity": feature_parity, "moe": moe_out,
-                  "moe_pd": moe_pd, "qwen32b": qwen32b}
+                  "moe_pd": moe_pd, "hubert": hubert, "train": train,
+                  "qwen32b": qwen32b}
     csrc = "src/repro_torch/kernels/csrc"
     kernels = []
     for name, replaces in (
@@ -2214,6 +2533,14 @@ def main() -> int:
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
+    # hubert's D 80 instance beside the gemma3 shape the row reports
+    flash_cases = rows["flash_attention"]["cases"]
+    flash_row = next(k for k in kernels if k["name"] == "flash_attention")
+    flash_row["hubert_d80"] = {
+        name: {k: flash_cases[name][k]
+               for k in ("ms", "fma_ms", "plain_ms", "library_ms",
+                         "bound_ms", "bound_by", "max_abs_err", "shape")}
+        for name in ("hubert_d80_bf16", "hubert_d80_ragged1000_bf16")}
     # rmsnorm has no call site in the model (nor in the JAX package's):
     # its 0 launches on the main paths are expected; every other kernel
     # must have run there

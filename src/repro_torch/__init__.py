@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of the HFX serving system.
 
 The JAX package ``repro`` stays the reference; this package mirrors its
-layout (``configs``, ``core``, ``kernels``, ``models``, ``serving``) and
-imports nothing from it.  Hot paths that ``repro`` runs as Pallas TPU
+layout (``configs``, ``core``, ``kernels``, ``models``, ``serving``,
+``training``, ``distributed``, ``launch``) and imports nothing from it.  Hot paths that ``repro`` runs as Pallas TPU
 kernels run here as hand-written CUDA C++ for ``sm_90a`` (see
 ``repro_torch.kernels``), each beside a plain PyTorch version that the
 CPU takes.

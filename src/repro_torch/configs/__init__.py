@@ -1,15 +1,15 @@
 """Architecture registry of the port.
 
-It holds every decoder of the JAX package's registry, field for field,
+It holds every model of the JAX package's registry, field for field,
 at full width (:func:`get_config`) and as reduced CPU variants
 (:func:`get_smoke_config`): the dense GQA transformers (``qwen7b``,
 ``qwen32b``, ``llama70b``, ``qwen2.5-14b``, ``internlm2-20b``,
 ``command-r-plus-104b`` and ``chameleon-34b``, whose VQ image tokens
 share the text vocabulary), ``gemma3-4b`` (local windows, so the slot
 plane), the MoE models ``olmoe-1b-7b`` and ``phi3.5-moe-42b-a6.6b``,
-``mamba2-2.7b`` (Mamba-2 SSD layers) and ``zamba2-7b`` (Mamba-2 with a
-weight-shared attention block).  The encoder ``hubert-xlarge`` joins
-with its ROADMAP item.
+``mamba2-2.7b`` (Mamba-2 SSD layers), ``zamba2-7b`` (Mamba-2 with a
+weight-shared attention block) — and the encoder ``hubert-xlarge``
+(bidirectional layers over precomputed audio frames).
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ from repro_torch.configs import (
     chameleon_34b,
     command_r_plus_104b,
     gemma3_4b,
+    hubert_xlarge,
     internlm2_20b,
     llama70b,
     mamba2_2p7b,
@@ -44,6 +45,7 @@ REGISTRY: dict[str, ModelConfig] = {
     "command-r-plus-104b": command_r_plus_104b.CONFIG,
     "qwen2.5-14b": qwen2p5_14b.CONFIG,
     "internlm2-20b": internlm2_20b.CONFIG,
+    "hubert-xlarge": hubert_xlarge.CONFIG,
     "zamba2-7b": zamba2_7b.CONFIG,
     "qwen7b": qwen7b.CONFIG,
     "qwen32b": qwen32b.CONFIG,

@@ -11,10 +11,8 @@ hyper-parameters plus the *layer pattern* the model builder reads:
 - ``shared_attn``  — a *weight-shared* attention block (Zamba-2 style)
 - ``encoder``      — bidirectional (non-causal) attention block
 
-A model is a sequence of *segments* ``(kind, count)``.  The port's
-``models/build.py`` runs every kind but ``encoder``, which raises
-until its ROADMAP item lands; the config keeps every field so that
-slice needs no schema change.
+A model is a sequence of *segments* ``(kind, count)``; the port's
+``models/build.py`` runs every kind.
 """
 
 from __future__ import annotations

@@ -1,1 +1,2 @@
-"""Checkpointing of the port (``checkpoint``)."""
+"""Checkpointing (``checkpoint``) and the fault-tolerant training runner
+(``fault_tolerance``) of the port."""

@@ -20,9 +20,10 @@
 //
 // Two instances, picked by dtype and D in flash_attention_launch:
 //
-// * bf16, D in {64, 112, 128, 256} (gemma3's 256, qwen7b's 128, zamba2's
-//   112): the tensor-core instance (namespace tc).  A block owns 128
-//   query rows of one (b, head) and runs two warpgroups and a warp.  One
+// * bf16, D in {64, 80, 112, 128, 256} (gemma3's 256, qwen7b's 128,
+//   zamba2's 112, hubert's 80): the tensor-core instance (namespace tc).
+//   A block owns 128 query rows of one (b, head) and runs two warpgroups
+//   and a warp.  One
 //   thread of the warp (the producer) loads Q once and streams K and V
 //   tiles of BK keys (64; 32 at D 256) through a ring of 2 stages (4 at
 //   D 256) with TMA (3-D tensor maps over (D, S, B * H), so the ragged
@@ -34,15 +35,16 @@
 //   rounded to bf16 in registers and is wgmma's A operand for O += P V
 //   (m64nDk16, V MN-major in shared memory), with O in registers.
 //   Nothing of S or P goes to shared memory.  Operands keep the 128-byte
-//   swizzle TMA writes (hopper.cuh); D = 112 rows are 224 bytes, not a
-//   whole number of 128-byte atoms, so the tile is laid out as D = 128
-//   with TMA filling columns 112..127 with zeros: QK^T takes 7 k-steps,
-//   PV runs at n = 128 and the epilogue stores 112 columns.  KV tiles
+//   swizzle TMA writes (hopper.cuh); D = 112 rows are 224 bytes and
+//   D = 80 rows 160, not a whole number of 128-byte atoms, so the tile
+//   is laid out as D = 128 with TMA filling the columns past D with
+//   zeros: QK^T takes D / 16 k-steps (7, 5), PV runs at n = 128 and the
+//   epilogue stores D columns.  KV tiles
 //   wholly above the diagonal or outside the window are skipped; the
 //   element mask runs only on tiles that cross the diagonal, the window
 //   edge or S; the longest causal rows go first in the grid.
 //   Shared memory: Q 2 * 64 * Dp * 2 bytes + the stages of K and V
-//   (BK * Dp * 2 each): 192 KB at D 256, 96 KB at 128 and 112.
+//   (BK * Dp * 2 each): 192 KB at D 256, 96 KB at 128, 112 and 80.
 //   Registers: O is Dp / 2 floats per consumer thread (128 at D 256),
 //   S BK / 2.  The block is 288 threads (two warpgroups and the producer
 //   warp), and ptxas and the card budget registers for it in whole
@@ -324,6 +326,7 @@ int launch_dim(int head_dim, const void* q, const void* k, const void* v,
     FA_CASE(16)
     FA_CASE(32)
     FA_CASE(64)
+    FA_CASE(80)
     FA_CASE(112)
     FA_CASE(128)
     FA_CASE(256)
@@ -346,7 +349,9 @@ constexpr int kBlock = 64 * 128;  // bytes of a 64-row, 64-column bf16 block
 
 template <int D>
 struct Shape {
-  static constexpr int DP = D == 112 ? 128 : D;  // columns laid out in smem
+  // columns laid out in smem: rows of 80 or 112 are not whole 128-byte
+  // swizzle atoms, so they are padded to 128 (TMA zero-fills the rest)
+  static constexpr int DP = D == 80 || D == 112 ? 128 : D;
   static constexpr int CB = DP / 64;             // 64-column blocks
   static constexpr int KSTEPS = D / 16;          // QK^T reduction steps
   static constexpr int BK = D == 256 ? 32 : 64;  // keys per KV tile
@@ -576,7 +581,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; causal: 0 or 1; window: 0 = none.
-// bf16 at D 64, 112, 128 and 256 runs the tensor-core instance, every
+// bf16 at D 64, 80, 112, 128 and 256 runs the tensor-core instance, every
 // other (dtype, D) the CUDA-core one.  Returns the cudaError_t of the
 // launch (cudaErrorInvalidValue for a dtype or head_dim the kernel does
 // not take, or a tensor map the driver refuses).
@@ -595,6 +600,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     return tc::launch<D_>(q, k, v, out, b, hq, hkv, seq_len, causal, window, s);
   switch (head_dim) {
     TC_CASE(64)
+    TC_CASE(80)
     TC_CASE(112)
     TC_CASE(128)
     TC_CASE(256)

@@ -5,7 +5,7 @@ Replaces the Pallas TPU kernel
 bound by operations: ``4 * B * Hq * D`` flops per unmasked (query, key)
 pair, so its least time on an H100 is those flops over 989 TFLOP/s
 (bf16 tensor cores).  The C entry point picks the instance: bf16 at
-D 64, 112, 128 and 256 runs on the tensor cores (wgmma, TMA), every
+D 64, 80, 112, 128 and 256 runs on the tensor cores (wgmma, TMA), every
 other (dtype, D) on the CUDA cores in f32; the source file says what
 bounds each.  Its plain PyTorch version is
 ``repro_torch.kernels.ref.flash_attention_ref``;
@@ -18,7 +18,7 @@ import torch
 
 from repro_torch.kernels import _build
 
-HEAD_DIMS = (16, 32, 64, 112, 128, 256)  # the FA_CASEs of flash_attention.cu
+HEAD_DIMS = (16, 32, 64, 80, 112, 128, 256)  # the FA_CASEs of flash_attention.cu
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,

@@ -2,27 +2,35 @@
 
 :class:`Model` is an ``nn.Module`` for configs whose layers are pre-norm
 GQA attention + SwiGLU FFN blocks of kind ``dense``, ``local``
-(sliding-window attention) or ``global``, pre-norm GQA attention + a
-top-k mixture-of-experts FFN (``moe``, :mod:`repro_torch.models.moe`),
-Mamba-2 blocks (``mamba``), and invocations of one weight-shared
-attention block (``shared_attn``) — the dense decoders' one segment,
-olmoe's and phi3.5-moe's one MoE segment, gemma3's 5:1 local:global
-pattern, mamba2's 64 Mamba-2 layers and zamba2's 13 x (5 Mamba-2 + the
-shared block) + 3.  The ``token+vq`` frontend (chameleon's VQ image
-tokens in the text vocabulary) is the plain token path, as in JAX.  It
-offers the JAX ``Model``'s API for both engine planes:
+(sliding-window attention), ``global`` or ``encoder`` (bidirectional,
+no cache), pre-norm GQA attention + a top-k mixture-of-experts FFN
+(``moe``, :mod:`repro_torch.models.moe`), Mamba-2 blocks (``mamba``),
+and invocations of one weight-shared attention block (``shared_attn``)
+— the dense decoders' one segment, olmoe's and phi3.5-moe's one MoE
+segment, gemma3's 5:1 local:global pattern, mamba2's 64 Mamba-2 layers,
+zamba2's 13 x (5 Mamba-2 + the shared block) + 3 and hubert's 48
+encoder layers.  The ``token+vq`` frontend (chameleon's VQ image tokens
+in the text vocabulary) is the plain token path, as in JAX; the
+``frames`` frontend (hubert) takes precomputed frame embeddings
+``(B, S, d_model)`` and runs without RoPE.  It offers the JAX
+``Model``'s API:
 
+- training: ``forward`` (logits of every position and the summed MoE
+  ``lb_loss``) and ``loss`` (masked mean cross-entropy + 0.01 * aux),
+  with ``remat`` running each layer under ``torch.utils.checkpoint``;
 - the paged plane: ``chunk_step`` (chunked prefill and decode over a
   paged KV pool), ``decode_block`` (K fused greedy decode iterations),
   ``spec_decode_block`` (one speculative verify pass),
   ``init_paged_cache`` / ``paged_cache_axes``;
 - the slot plane: ``prefill`` (monolithic prompt prefill returning slot
-  caches), ``decode_step``, ``decode_block_slots``, ``init_cache`` /
-  ``cache_axes``;
+  caches; none for an encoder-only model), ``decode_step``,
+  ``decode_block_slots``, ``init_cache`` / ``cache_axes``;
 - the ``supports_*`` properties.
 
-The ``encoder`` kind and the ``frames`` frontend (hubert) raise
-``NotImplementedError`` naming their ROADMAP item.
+Parameters are built with ``requires_grad=False`` and the serving
+methods run under ``torch.no_grad()``: serving never records a graph.
+The trainer (:mod:`repro_torch.training.train_loop`) turns gradients on
+for the parameters it trains, for the length of one ``loss`` call.
 
 Layout: the JAX package stacks per-layer parameters by segment (and by
 group and inner kind for periodic patterns, see
@@ -33,7 +41,9 @@ layers.  A ``shared_attn`` position holds no parameters of its own: it
 runs the one :class:`DenseBlock` at ``shared`` (``params["shared"]`` in
 JAX), with a cache of its own at each position.  Weights stay
 ``(in, out)`` as in the JAX package (``x @ w``); the output head is
-``x @ table.T`` (the embedding table when tied).
+``x @ table.T`` (the embedding table when tied).  ``embed`` is kept for
+a frames model too, as JAX's ``init`` keeps it (no gradient reaches it;
+weight decay still moves it).
 :func:`repro_torch.models.convert.params_from_jax` maps the JAX tree
 onto ``layers.{i}.…`` and ``shared.…`` without transposes.
 
@@ -53,14 +63,17 @@ are written in place.
 On the card the hot spots go through the CUDA kernels of
 :mod:`repro_torch.kernels.ops` (their plain versions on the CPU): the
 paged decode attention of a C == 1 ``chunk_step``, the flash attention
-of every ``prefill`` layer, the decode attention of ``decode_step`` on
-``window == 0`` layers, and the SSD scan of a Mamba-2 ``prefill`` layer
-whose padded length is a multiple of the chunk (the gate of
-``models/mamba2.py::mamba_block``).  With ``use_kernels=False`` they
-take the plain routes the JAX model takes by default (paged gather,
-chunked prefill attention, masked decode attention, chunked SSD scan).
-Local layers' decode attention over the ring cache and the SSD of
-chunked prefill and of decode are always plain routes, as in JAX.
+of every ``prefill`` and ``forward`` layer, the decode attention of
+``decode_step`` on ``window == 0`` layers, and the SSD scan of a
+Mamba-2 ``prefill`` or ``forward`` layer whose padded length is a
+multiple of the chunk (the gate of ``models/mamba2.py::mamba_block``).
+With ``use_kernels=False`` they take the plain routes the JAX model
+takes by default (paged gather, chunked prefill attention with
+``lens``, masked decode attention, chunked SSD scan).  Local layers'
+decode attention over the ring cache and the SSD of chunked prefill and
+of decode are always plain routes, as in JAX.  No kernel has a
+backward, in either package: the trainer builds the model with
+``use_kernels=False``, JAX's ``build_model(cfg, remat=True)``.
 """
 
 from __future__ import annotations
@@ -70,6 +83,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -78,10 +92,6 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, moe
 from repro_torch.models.common import embed, init_dense, rms_norm, swiglu
 
-# the segment kind the port does not run yet, and its ROADMAP item
-_ENCODER_ITEM = "ROADMAP.md §1 'Encoder and frames frontend'"
-PORTED_KINDS = ("dense", "moe", "local", "global", "mamba", "shared_attn")
-FRONTENDS = ("token", "token+vq")   # token+vq: VQ ids in the text vocab
 MAMBA_LEAVES = ("conv_x", "conv_bc", "ssm")  # a Mamba-2 layer's cache
 
 
@@ -181,24 +191,16 @@ class Model(nn.Module):
     raises without a card); tests pass ``device="cpu"``."""
 
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32,
-                 device=None, use_kernels: bool = True):
+                 device=None, use_kernels: bool = True, remat: bool = False):
         super().__init__()
         kinds = [k for k, n in cfg.layer_pattern() for _ in range(n)]
-        for k in kinds:
-            if k not in PORTED_KINDS:
-                raise NotImplementedError(
-                    f"{cfg.name}: '{k}' segments are not ported yet "
-                    f"({_ENCODER_ITEM})"
-                )
-        if cfg.frontend not in FRONTENDS:
-            raise NotImplementedError(
-                f"{cfg.name}: the '{cfg.frontend}' frontend is not ported "
-                f"yet ({_ENCODER_ITEM})"
-            )
         self.cfg = cfg
         self.dtype = dtype
         self.device = resolve_device(device)
         self.use_kernels = use_kernels
+        # forward/loss: recompute each layer in the backward pass (JAX's
+        # jax.checkpoint(..., nothing_saveable) around each scanned layer)
+        self.remat = remat
         # per layer, in execution order: its kind, its window (0 = full
         # attention), and its row in the stacked paged caches (the K/V
         # pools of attention layers, the state of Mamba-2 layers)
@@ -272,23 +274,32 @@ class Model(nn.Module):
         return self.supports_prefix_cache
 
     # -- forward --------------------------------------------------------------
-    def _mlp_out(self, blk: AttnBlock, x, ctx):
+    def _mlp_out(self, blk: AttnBlock, x, ctx, *, with_aux: bool = False):
         """Attention output projection, residual, then the FFN half: the
         SwiGLU, or the MoE FFN over every row of the call (padding lanes
-        and idle slots route and take capacity, as in JAX; its aux is
-        dropped, as the JAX serving paths drop it)."""
+        and idle slots route and take capacity, as in JAX).  With
+        ``with_aux``, returns (x, the layer's MoE ``lb_loss``, 0 for
+        other layers) for ``forward``; the serving paths drop it, as the
+        JAX serving paths do."""
         b, s = x.shape[:2]
         ctx = ctx.transpose(1, 2).reshape(b, s, -1)
         x = x + ctx @ blk.attn["wo"]
         h = rms_norm(x, blk.ln2, self.cfg.norm_eps)
+        aux = x.new_zeros((), dtype=torch.float32)
         if isinstance(blk, MoEBlock):
-            return x + moe.moe_ffn(blk.moe, h, self.cfg)[0]
-        f = blk.ffn
-        return x + swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
+            y, moe_aux = moe.moe_ffn(blk.moe, h, self.cfg)
+            aux = moe_aux["lb_loss"]
+        else:
+            f = blk.ffn
+            y = swiglu(h, f["w_gate"], f["w_up"], f["w_down"])
+        return (x + y, aux) if with_aux else x + y
 
     def _qkv(self, blk: AttnBlock, x, positions):
+        """Pre-norm Q/K/V; RoPE is off for a frames model, as JAX keys it
+        on the frontend (not the kind)."""
         h = rms_norm(x, blk.ln1, self.cfg.norm_eps)
-        return attn.project_qkv(blk.attn, h, self.cfg, positions=positions)
+        return attn.project_qkv(blk.attn, h, self.cfg, positions=positions,
+                                use_rope=self.cfg.frontend != "frames")
 
     def _paged_layer(self, blk: AttnBlock, x, *, positions, kv_len,
                      k_pages, v_pages, page_table, index):
@@ -309,23 +320,30 @@ class Model(nn.Module):
             )
         return self._mlp_out(blk, x, ctx)
 
-    def _prefill_layer(self, blk: AttnBlock, x, window: int, *, positions,
-                       lens, cache_len: int):
-        """One layer of a monolithic prefill; returns (x, its slot
-        cache).  Right padding needs no ``lens`` on the kernel route:
-        every layer is causal, so valid rows never see padded keys."""
-        cfg = self.cfg
-        q, k, v = self._qkv(blk, x, positions)
+    def _seq_attention(self, q, k, v, window: int, lens):
+        """Attention of every position of a whole sequence (``prefill``,
+        ``forward``): the flash kernel, or the plain chunked attention
+        with ``lens``.  The kernel route takes no ``lens``, as JAX's:
+        right padding is harmless to a causal layer's valid rows, and a
+        bidirectional (encoder) layer's padded keys are masked only on
+        the plain route, so its kernel route wants full lengths."""
         if self.use_kernels:
             # the projections come out as transposed views
-            ctx = ops.flash_attention(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), causal=cfg.causal,
-                                      window=window)
-        else:
-            ctx = attn.chunked_attention(q, k, v, lens=lens,
-                                         causal=cfg.causal, window=window)
-        return self._mlp_out(blk, x, ctx), _build_cache(k, v, lens, window,
-                                                         cache_len)
+            return ops.flash_attention(q.contiguous(), k.contiguous(),
+                                       v.contiguous(), causal=self.cfg.causal,
+                                       window=window)
+        return attn.chunked_attention(q, k, v, lens=lens,
+                                      causal=self.cfg.causal, window=window)
+
+    def _prefill_layer(self, blk: AttnBlock, x, window: int, *, positions,
+                       lens, cache_len: int):
+        """One layer of a monolithic prefill; returns (x, its slot cache,
+        None for an encoder-only model)."""
+        q, k, v = self._qkv(blk, x, positions)
+        ctx = self._seq_attention(q, k, v, window, lens)
+        cache = (None if self.cfg.is_encoder_only
+                 else _build_cache(k, v, lens, window, cache_len))
+        return self._mlp_out(blk, x, ctx), cache
 
     def _decode_layer(self, blk: AttnBlock, x, window: int, cache: dict, *,
                       pos, lens):
@@ -360,6 +378,79 @@ class Model(nn.Module):
     def _logits(self, x_last):
         table = self.embed if self.head is None else self.head
         return rms_norm(x_last, self.final_norm, self.cfg.norm_eps) @ table.T
+
+    def _embed_in(self, batch: dict):
+        """The first layer's input: the token embeddings, or a frames
+        model's frame embeddings ``(B, S, d_model)`` in the model's
+        dtype (JAX's ``_embed_in``).  Token ids given to a frames model
+        raise ``ValueError``, as the JAX model's shapes do."""
+        if self.cfg.frontend != "frames":
+            return embed(batch["tokens"], self.embed, self.dtype)
+        frames = batch["frames"]
+        if frames.dim() != 3 or frames.shape[-1] != self.cfg.d_model:
+            raise ValueError(
+                f"{self.cfg.name}: the frames frontend takes (B, S, "
+                f"{self.cfg.d_model}) frame embeddings, got shape "
+                f"{tuple(frames.shape)}")
+        return frames.to(self.dtype)
+
+    def _forward_layer(self, kind: str, blk, window: int, x, positions,
+                       lens):
+        """One layer of ``forward``: (x, its MoE ``lb_loss`` or 0).  A
+        Mamba-2 layer runs with no ``lens``, as JAX's forward does."""
+        if kind == "mamba":
+            return (self._mamba_layer(blk, x)[0],
+                    x.new_zeros((), dtype=torch.float32))
+        q, k, v = self._qkv(blk, x, positions)
+        ctx = self._seq_attention(q, k, v, window, lens)
+        return self._mlp_out(blk, x, ctx, with_aux=True)
+
+    def forward(self, batch: dict, return_aux: bool = False):
+        """Full-sequence forward -> logits (B, S, V) in the model's dtype
+        (and, with ``return_aux``, the MoE ``lb_loss`` summed over the
+        layers, a 0-d f32 tensor).
+
+        batch: ``tokens`` (B, S) int, or ``frames`` (B, S, d_model) for a
+        frames model; optional ``lens`` (B,) valid lengths (default S),
+        read by the plain attention route only.  Records a graph when
+        gradients are on and a parameter requires them; with ``remat``
+        each layer runs under ``torch.utils.checkpoint`` and is
+        recomputed in the backward pass."""
+        x = self._embed_in(batch)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        lens = batch.get("lens")
+        if lens is None:
+            lens = torch.full((b,), s, dtype=torch.int32, device=x.device)
+        aux = x.new_zeros((), dtype=torch.float32)
+        for kind, blk, window, _ in self.blocks():
+            args = (kind, blk, window, x, positions, lens)
+            if self.remat:
+                x, a = checkpoint(self._forward_layer, *args,
+                                  use_reentrant=False)
+            else:
+                x, a = self._forward_layer(*args)
+            aux = aux + a
+        logits = self._logits(x)
+        return (logits, aux) if return_aux else logits
+
+    def loss(self, batch: dict) -> torch.Tensor:
+        """Next-token (or masked-prediction) cross-entropy + 0.01 x the
+        MoE balance aux: the mean over positions of logsumexp - the
+        label's logit, in f32, weighted by ``batch["mask"]`` where the
+        batch has one (divided by max(sum(mask), 1))."""
+        logits, aux = self.forward(batch, return_aux=True)
+        logits32 = logits.float()
+        lse = torch.logsumexp(logits32, dim=-1)
+        ll = logits32.gather(-1, batch["labels"].long()[..., None])[..., 0]
+        tok_loss = lse - ll
+        mask = batch.get("mask")
+        if mask is None:
+            ce = tok_loss.mean()
+        else:
+            mask = mask.float()
+            ce = (tok_loss * mask).sum() / mask.sum().clamp(min=1.0)
+        return ce + 0.01 * aux
 
     def _chunk_hidden(self, caches, page_table, tokens, start, chunk_lens):
         """The layers of a chunk over *paged* caches: the hidden states
@@ -508,20 +599,24 @@ class Model(nn.Module):
 
     # -- slot plane ---------------------------------------------------------------
     @torch.no_grad()
-    def prefill(self, tokens, lens, *, cache_len: Optional[int] = None):
+    def prefill(self, tokens_or_frames, lens, *,
+                cache_len: Optional[int] = None):
         """Monolithic prefill of right-padded prompts.
 
-        tokens: (B, S); lens: (B,) valid lengths.  Returns (logits (B, V)
-        at each row's last valid token, slot caches — one dict per layer:
-        ``{"k", "v", "pos"}`` for attention, global layers padded to
-        ``cache_len`` positions with pos -1, local layers in ring order;
-        ``{"conv_x", "conv_bc", "ssm"}`` at each row's true end for
-        Mamba-2).
+        tokens_or_frames: (B, S) token ids, or (B, S, d_model) frames for
+        a frames model; lens: (B,) valid lengths.  Returns (logits
+        (B, V) at each row's last valid token, slot caches — one entry
+        per layer: ``{"k", "v", "pos"}`` for attention, global layers
+        padded to ``cache_len`` positions with pos -1, local layers in
+        ring order; ``{"conv_x", "conv_bc", "ssm"}`` at each row's true
+        end for Mamba-2; None for every layer of an encoder-only model,
+        which JAX builds no cache for either).
         """
-        b, s = tokens.shape
+        key = "frames" if self.cfg.frontend == "frames" else "tokens"
+        x = self._embed_in({key: tokens_or_frames})
+        b, s = x.shape[:2]
         cache_len = cache_len or s
-        x = embed(tokens, self.embed, self.dtype)
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        positions = torch.arange(s, device=x.device).expand(b, s)
         caches = []
         for kind, blk, window, _ in self.blocks():
             if kind == "mamba":

@@ -1,10 +1,9 @@
 """The port's architecture registry against the JAX package's: every
-decoder config equal field for field (full width and smoke), the same
-parameter counts, and the port's ``Model`` laid out at full width as
+config equal field for field (full width and smoke), the same parameter
+counts, and the port's ``Model`` laid out at full width as
 ``convert.param_shapes_from_jax`` maps the JAX tree's shapes
 (``jax.eval_shape``: nothing is materialized; the port's side is built
-on the meta device).  The encoder-only hubert stays out of the registry
-and refuses to build.
+on the meta device) — the decoders and the encoder-only hubert.
 """
 
 import dataclasses
@@ -40,12 +39,14 @@ NEW = ["qwen32b", "llama70b", "qwen2.5-14b", "internlm2-20b",
 
 
 def test_registry_holds_every_jax_decoder():
+    """Every JAX config: the 12 decoders and hubert-xlarge."""
     assert len(DECODERS) == 12
-    assert sorted(REGISTRY) == DECODERS
+    assert sorted(REGISTRY) == sorted(JAX_REGISTRY) == sorted(
+        DECODERS + ["hubert-xlarge"])
     assert set(NEW) < set(REGISTRY)
 
 
-@pytest.mark.parametrize("name", DECODERS)
+@pytest.mark.parametrize("name", sorted(JAX_REGISTRY))
 def test_config_equals_jax_field_for_field(name):
     """Full width and smoke: the same fields and values, ``source``
     included (the MoE and SSM sub-configs compared as dicts); the same
@@ -101,13 +102,19 @@ def test_chameleon_token_vq_frontend_is_the_token_path():
     assert model.supports_prefix_cache and model.supports_spec_decode
 
 
-def test_hubert_stays_out_and_refuses_to_build():
-    """The encoder-only hubert is not in the port's registry, and its
-    config still refuses to build, naming its ROADMAP item."""
-    assert "hubert-xlarge" not in REGISTRY
-    for jcfg in (jax_config("hubert-xlarge"), jax_smoke("hubert-xlarge")):
-        fields = {f.name: getattr(jcfg, f.name)
-                  for f in dataclasses.fields(ModelConfig)}
-        with pytest.raises(NotImplementedError,
-                           match="Encoder and frames frontend"):
-            Model(ModelConfig(**fields), device="meta")
+def test_hubert_full_width_layout_maps_from_jax_shapes():
+    """hubert-xlarge at full width: 48 encoder layers laid out as the JAX
+    tree's shapes map, ``embed`` kept beside the codebook ``head`` (JAX's
+    ``init`` keeps it; no gradient reaches it), 1.2597 B parameters."""
+    cfg = get_config("hubert-xlarge")
+    tree = jax.eval_shape(jax_build(jax_config("hubert-xlarge")).init,
+                          jax.random.key(0))
+    shapes = param_shapes_from_jax(tree, cfg)
+    model = Model(cfg, device="meta")
+    assert shapes == {k: tuple(v.shape)
+                      for k, v in model.state_dict().items()}
+    assert sum(int(np.prod(s)) for s in shapes.values()) == cfg.param_count()
+    assert round(cfg.param_count() / 1e9, 4) == 1.2597
+    assert model.kinds == ["encoder"] * 48
+    assert shapes["embed"] == shapes["head"] == (504, 1280)
+    assert cfg.resolved_head_dim == 80

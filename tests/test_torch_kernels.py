@@ -417,6 +417,44 @@ def test_ops_send_cpu_tensors_to_the_plain_versions():
     assert ops.launch_counts() == before  # no kernel ran
 
 
+def _grad_cases():
+    """Each ops wrapper with small CPU operands, by name."""
+    table, _, _, k_pages, v_pages, kv_len = _paged_fixture(1, 2, 2, 16, 8, 4)
+    q, k, v = _t(*_attn_inputs(0, 1, 4, 2, 40, 16))
+    lens = torch.tensor([17], dtype=torch.int32)
+    paged = _t(k_pages, v_pages, table, kv_len)
+    return {
+        "flash_attention": (ops.flash_attention, (q, k, v), 0),
+        "decode_attention": (ops.decode_attention,
+                             (q[:, :, 0], k, v, lens), 0),
+        "paged_decode_attention": (ops.paged_decode_attention,
+                                   (torch.randn(2, 2, 8), *paged), 0),
+        "page_gather": (ops.page_gather,
+                        (paged[0][None], torch.tensor([1, -1],
+                                                      dtype=torch.int32)), 0),
+        "ssd": (ops.ssd, tuple(_t(*_ssd_inputs(2, 2, 32, 2, 8, 16))), 0),
+        "rmsnorm": (ops.rmsnorm, (torch.randn(3, 8), torch.randn(8)), 1),
+    }
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "decode_attention",
+                                  "paged_decode_attention", "page_gather",
+                                  "ssd", "rmsnorm"])
+def test_ops_wrappers_raise_when_an_input_requires_grad(name):
+    """No kernel has a backward, so each wrapper raises — on the CPU as
+    on the card — when gradients are on and an input requires one,
+    rather than return a tensor cut out of the graph; under
+    ``torch.no_grad()``, or with no input requiring one, it runs."""
+    fn, args, i = _grad_cases()[name]
+    fn(*args)
+    args = list(args)
+    args[i] = args[i].clone().requires_grad_(True)
+    with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+        fn(*args)
+    with torch.no_grad():
+        fn(*args)
+
+
 @pytest.mark.parametrize("err,counted", [(0, 1), (700, 0)])
 def test_launch_counts_only_a_launch_the_entry_point_reports(monkeypatch,
                                                              err, counted):
@@ -675,6 +713,34 @@ def test_flash_attention_tensor_core_kernel_matches_plain(
     torch.cuda.synchronize()
     torch.testing.assert_close(old.float(), want.float(), rtol=2e-2,
                                atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal,window", [
+    (2, 16, 16, 1024, 80, False, 0),    # hubert-xlarge's encoder layer
+    (1, 16, 16, 1000, 80, False, 0),    # a ragged S, bidirectional
+    (2, 4, 4, 40, 80, False, 0),        # one ragged tile
+    (1, 4, 2, 1100, 80, True, 0),       # causal, GQA, ragged
+    (1, 4, 4, 300, 80, True, 64),       # a window that cuts a tile
+])
+def test_flash_attention_d80_kernel_matches_plain(cuda, dtype, b, hq, hkv,
+                                                  s, d, causal, window):
+    """The D 80 instance (hubert's head dim): bf16 on the tensor cores
+    (rows laid out as 128 columns with TMA's zero fill), f32 on the CUDA
+    cores, bidirectional, causal and windowed, ragged S; rtol = atol =
+    2e-5 in f32, 2e-2 in bf16, where the CUDA-core instance must agree
+    too."""
+    dt = getattr(torch, dtype)
+    q, k, v = _card_attn(cuda, s + d + window, b, hq, hkv, s, d, dt)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = TOL if dt == torch.float32 else 2e-2
+    for fma in (False, True) if dt == torch.bfloat16 else (False,):
+        got = flash_mod.flash_attention(q, k, v, causal=causal,
+                                        window=window, fma=fma)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
 
 
 def _decode_lens(b, hq, hkv, s, d, itemsize):

@@ -31,7 +31,6 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
-from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.models.build import Model  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
@@ -331,10 +330,9 @@ def test_supports_flags_and_refusals_mirror_jax():
     (paged plane), gemma3 (slot plane only: its sliding-window layers
     refuse paged caches), mamba2 and zamba2 (both planes; no prefix
     cache or spec decode, their SSM state being slot-resident), olmoe
-    (MoE layers: every flag, as in JAX); the kind not ported yet
-    (encoder: hubert) refuses to build, naming its ROADMAP item.
-    (mamba2, zamba2 and MoE refused to build before they were ported;
-    their parity tests are below and in tests/test_torch_moe.py.)"""
+    (MoE layers: every flag, as in JAX) and hubert (encoder-only frames:
+    no flag; its forward and the engine's refusal are held in
+    tests/test_torch_encoder.py)."""
     flags = ("supports_chunked", "supports_prefix_cache",
              "supports_spec_decode")
     model = _port_model()
@@ -353,11 +351,12 @@ def test_supports_flags_and_refusals_mirror_jax():
     olmoe, jolmoe = _fam_port("olmoe-1b-7b"), _fam("olmoe-1b-7b")[1]
     assert [getattr(olmoe, f) for f in flags] == [
         getattr(jolmoe, f) for f in flags] == [True, True, True]
-    jcfg = jax_smoke("hubert-xlarge")
-    fields = {f.name: getattr(jcfg, f.name)
-              for f in dataclasses.fields(ModelConfig)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(ModelConfig(**fields), device="cpu")
+    hubert = Model(get_smoke_config("hubert-xlarge"), device="cpu")
+    jhubert = jax_build(jax_smoke("hubert-xlarge"))
+    assert [getattr(hubert, f) for f in flags] == [
+        getattr(jhubert, f) for f in flags] == [False, False, False]
+    with pytest.raises(ValueError, match="init_cache"):
+        hubert.init_paged_cache(2, 16, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -634,14 +633,21 @@ def _fam_port(arch):
 def test_prefill_and_decode_match_jax_forward(arch):
     """The port's prefill of 20 tokens, then 6 ``decode_step``s, give
     the logits of JAX's full-sequence ``forward`` over the 26 tokens at
-    each position, within 1e-4 (the port has no ``forward`` yet: it
-    comes with training)."""
+    each position, within 1e-4, and so does the port's own ``forward``
+    (with its summed MoE aux equal to JAX's)."""
     cfg, jm, jp, _ = _fam(arch)
     model = _fam_port(arch)
     b, s, t = 2, 20, 6
     toks = np.array(jax.random.randint(jax.random.key(2), (b, s + t), 0,
                                        cfg.vocab_size), np.int32)
-    full = np.asarray(jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(toks)}))
+    jfull, jaux = jax.jit(jm.forward, static_argnames="return_aux")(
+        jp, {"tokens": jnp.asarray(toks)}, return_aux=True)
+    full = np.asarray(jfull)
+    fwd, aux = model.forward({"tokens": torch.as_tensor(toks)},
+                             return_aux=True)
+    np.testing.assert_allclose(fwd.numpy(), full, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-5,
+                               atol=1e-6)
     lens = torch.full((b,), s, dtype=torch.int32)
     got, caches = model.prefill(torch.as_tensor(toks[:, :s]), lens,
                                 cache_len=s + t)
