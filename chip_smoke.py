@@ -13,7 +13,9 @@ line (``hybrid`` and ``moe`` a second one for their hand-offs,
    ptxas's registers and spills of each tensor-core kernel and the
    HGMMA (wgmma) instructions ``cuobjdump -sass`` finds (none, or no
    cuobjdump, fails the run), with the D 80 flash instance's under
-   ``d80``; then ``decode_ring``: ptxas's registers
+   ``d80``: its ptxas report and its HGMMA shapes, failing if any is
+   64x128x16 or if P V's widths do not sum to the 80 columns once per
+   16 keys; then ``decode_ring``: ptxas's registers
    and spills of each instance of the contiguous decode kernel's ring.
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card (``rtol = atol =`` 2e-5 in f32 with TF32 off, 2e-2 in bf16, the
@@ -137,7 +139,8 @@ line (``hybrid`` and ``moe`` a second one for their hand-offs,
    encoder layers over frames, d 1280, 16 heads of 80; 1.26 B
    parameters): one ``Model.forward`` over 8 x 1024 random frames, the
    flash kernel exactly 48 times and nothing else, finite logits; its
-   wall and device time and peak memory; then a 2-layer full-width cut
+   wall and device time, flash's device time and share of it, and peak
+   memory; then a 2-layer full-width cut
    in f32 (TF32 off), the kernel route against the plain route within
    2e-4.
 16. ``train`` — ``TrainRunner`` on full-width hubert-xlarge in f32 (TF32
@@ -162,6 +165,15 @@ line with every kernel's numbers, and, last,
 ``{"ok": true, "device": {...}}``.  Any failed check raises, so the
 script exits non-zero; it also exits non-zero, printing no result, when
 no CUDA card is visible or when it is run outside the repository.
+
+    python3 chip_smoke.py --flash80-variants [OTHER_CSRC]
+
+instead builds the D 80 flash instance once per variant
+(``FLASH80_VARIANTS``: one block per tile in place of the persistent
+grid, 64 keys a KV tile, other ring depths, diagnostics that leave out
+the exp2 or the warpgroups' turns) and, given the kernel sources of
+another checkout, that checkout's flash attention; holds each to the
+plain version and times each beside SDPA at hubert's shape, in turns.
 
     python3 chip_smoke.py --profile
 
@@ -466,16 +478,61 @@ def tensor_core_report(_build) -> dict:
               f"the {name} library holds no HGMMA instruction")
         ptxas, notes = ptxas_report(
             _build.build_log.get(name, ""),
-            lambda fn: fn if re.search(r"_(tc|cb)_kernel", fn) else None)
+            lambda fn: fn if re.search(r"_(tc|cb)_kernel|" + D80_KERNEL, fn)
+            else None)
         out[name] = {"hgmma": sum(hgmma.values()), "hgmma_by_function": hgmma,
                      "ptxas": ptxas or "built earlier: no ptxas report",
                      "ptxas_notes": notes}
-    # hubert's head dim: the D 80 instance, laid out as 128 columns
+    # hubert's head dim: the D 80 instance, 64 + 16 columns
     flash = out["flash_attention"]["ptxas"]
-    out["flash_attention"]["d80"] = (
-        {fn: v for fn, v in flash.items() if "flash_tc_kernelILi80E" in fn}
-        if isinstance(flash, dict) else flash)
+    out["flash_attention"]["d80"] = {
+        "ptxas": ({fn: v for fn, v in flash.items() if D80_KERNEL in fn}
+                  if isinstance(flash, dict) else flash),
+        **d80_hgmma(_build.library_path("flash_attention"), cuobjdump)}
     return out
+
+
+D80_KERNEL = "flash80_kernel"   # the D 80 instance's function
+
+
+def d80_hgmma(lib, cuobjdump, strict: bool = True) -> dict:
+    """The wgmma shapes (``HGMMA.64xNx16``) of the D 80 flash function in
+    ``cuobjdump -sass`` of ``lib``: QK^T at n 64 per 64 keys, P V at
+    n 64 + n 16 per 16 keys (V the transposed B).  Fails if any is
+    64x128x16 (PV over a tile padded to 128 columns), or if the P V
+    widths do not cover the 80 columns once per 16 keys: each width as
+    often as the others, the widths summing to 80.  ``strict=False``
+    reports without checking."""
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    shapes: Counter = Counter()
+    pv: Counter = Counter()
+    forms: Counter = Counter()
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = fn and D80_KERNEL in fn and re.search(r"HGMMA\.64x(\d+)x16[^;]*",
+                                                   line)
+        if m:
+            n = int(m.group(1))
+            shapes[n] += 1
+            # P V: B (V) MN-major, which the SASS marks as transposed
+            if "tnspB" in m.group(0):
+                pv[n] += 1
+            forms[re.sub(r"\d+", "#", m.group(0))] += 1
+    if strict:
+        check(bool(shapes), f"no HGMMA in the {D80_KERNEL} function")
+        check(128 not in shapes, f"{D80_KERNEL} runs HGMMA.64x128x16: "
+                                 f"{dict(shapes)}")
+        check(bool(pv) and len(set(pv.values())) == 1 and sum(pv) == 80,
+              f"{D80_KERNEL}'s P V widths {dict(pv)} do not sum to 80 per "
+              f"16 keys")
+    return {"hgmma_shapes": {f"64x{n}x16": c for n, c in sorted(shapes.items())},
+            "pv_widths": {str(n): c for n, c in sorted(pv.items())},
+            "pv_columns_per_16_keys": sum(pv), "sass_forms": dict(forms)}
 
 
 def decode_ring_report(_build) -> dict:
@@ -522,12 +579,13 @@ def timings(torch, kernel, plain, library, iters: int,
             "event_ms": cuda_ms(torch, kernel, iters)}
 
 
-def device_ms(torch, fn, iters: int = 5) -> float:
+def device_ms(torch, fn, iters: int = 5, only: str | None = None):
     """Device time of one call of ``fn``: the durations of what it runs
     on the card, from ``torch.profiler``'s events over ``iters`` calls,
-    summed and divided by ``iters``.  Unlike ``cuda_ms`` it leaves out
-    the host's gaps between launches, which dominate calls of a few
-    tens of microseconds.  The tracer now and then hands back a window
+    summed and divided by ``iters``; with ``only``, the pair (that time,
+    the time of the kernels whose names hold ``only``).  Unlike
+    ``cuda_ms`` it leaves out the host's gaps between launches, which
+    dominate calls of a few tens of microseconds.  The tracer now and then hands back a window
     with some or all of its device events missing (seen for library
     calls that record fine in other runs, and once for two of five
     flash-attention calls), and losing events only ever shortens the
@@ -539,7 +597,7 @@ def device_ms(torch, fn, iters: int = 5) -> float:
 
     fn()
     torch.cuda.synchronize()
-    best_n, best_us = 0, 0.0
+    best_n, best_us, best_only_us = 0, 0.0, 0.0
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -549,9 +607,13 @@ def device_ms(torch, fn, iters: int = 5) -> float:
         if len(events) > best_n:
             best_n = len(events)
             best_us = sum(e.time_range.elapsed_us() for e in events)
+            best_only_us = sum(e.time_range.elapsed_us() for e in events
+                               if only is not None and only in e.name)
         if attempt >= 1 and best_n > 0:
             break
     check(best_n > 0, "the profiler recorded no device time in three windows")
+    if only is not None:
+        return best_us / 1e3 / iters, best_only_us / 1e3 / iters
     return best_us / 1e3 / iters
 
 
@@ -640,6 +702,144 @@ def flash_kernel_rows(torch, dev):
         del q, k, v, band
     torch.cuda.empty_cache()
     return {**cases["gemma3_local_bf16"], "cases": cases}
+
+
+# Variants of the D 80 flash instance, each an edit (old, new) of
+# flash_attention.cu: the launch shape and tile sizes it was tuned over,
+# and diagnostics that leave out one part of the design (these compute
+# something else, or the same in another order, and are timed only).
+FLASH80_VARIANTS = {
+    "shipped": {"edits": []},
+    "one_block_per_tile": {"edits": [
+        ("const int grid = n_tiles < sms ? n_tiles : sms;",
+         "const int grid = n_tiles;")]},
+    "bk64_s4": {"edits": [("constexpr int kBK = 128;", "constexpr int kBK = 64;")]},
+    "bk64_s8": {"edits": [("constexpr int kBK = 128;", "constexpr int kBK = 64;"),
+                          ("constexpr int kStages = 4;",
+                           "constexpr int kStages = 8;")]},
+    "bk128_s3": {"edits": [("constexpr int kStages = 4;",
+                            "constexpr int kStages = 3;")]},
+    "diag_no_ex2": {"diagnostic": True, "edits": [
+        ("s[i] = hk::ex2(fmaf(s[i], scale_log2, -mh[h]));",
+         "s[i] = fmaf(s[i], scale_log2, -mh[h]);")]},
+    "diag_no_turns": {"diagnostic": True, "edits": [
+        ("hk::named_sync(turn, 256);", ""),
+        ("hk::named_arrive(next, 256);", ""),
+        ("if (wg == 1) hk::named_arrive(kTurn, 256);", "")]},
+}
+
+
+def flash80_variants(torch, dev, other_csrc: Path | None = None) -> dict:
+    """``--flash80-variants``: the D 80 flash instance built once per
+    entry of ``FLASH80_VARIANTS`` (one block per tile in place of the
+    persistent grid, 64 keys a KV tile, other ring depths, diagnostics),
+    all with ``nvcc`` at once into ``build/flash80_variants/``; each but
+    the diagnostics held to the plain version on the edge shapes of the
+    cuda tests (2e-2), then timed at hubert's shape (B 8, 16 heads, S
+    1024, bidirectional) and a ragged S 1000 beside SDPA, in turns over
+    3 rounds (the order reversed every other round); ptxas's report and
+    the HGMMA shapes of each.
+    ``other_csrc``, the ``csrc`` directory of another checkout (another
+    commit's kernels, same C entry point), adds its flash attention as
+    the variant ``other``, built from its own sources."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build, ref
+
+    out_dir = ROOT / "build" / "flash80_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _build.cuda_tool("nvcc")
+    variants = dict(FLASH80_VARIANTS)
+    if other_csrc is not None:
+        variants["other"] = {"csrc": other_csrc.resolve(), "edits": []}
+    procs = {}
+    for label, spec in variants.items():
+        csrc = spec.get("csrc", _build.CSRC)
+        text = (csrc / "flash_attention.cu").read_text()
+        for old, new in spec["edits"]:
+            check(old in text, f"variant {label}: {old!r} not in the source")
+            text = text.replace(old, new)
+        src = out_dir / f"{label}.cu"
+        src.write_text(text)
+        procs[label] = subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-I", str(csrc),
+             "-o", str(out_dir / f"{label}.so"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    logs = {label: p.communicate()[0] for label, p in procs.items()}
+    for label, p in procs.items():
+        check(p.returncode == 0, f"variant {label} failed to build:\n"
+                                 f"{logs[label]}")
+    cuobjdump = _build.cuda_tool("cuobjdump")
+    fns, report = {}, {}
+    for label in variants:
+        lib = ctypes.CDLL(str(out_dir / f"{label}.so"))
+        fn = lib.flash_attention_launch
+        fn.argtypes = _build.SIGNATURES["flash_attention"][1]
+        fn.restype = ctypes.c_int
+        fns[label] = fn
+        ptxas, notes = ptxas_report(
+            logs[label], lambda f: f if D80_KERNEL in f else None)
+        report[label] = {"ptxas": ptxas, "ptxas_notes": notes,
+                         **d80_hgmma(out_dir / f"{label}.so", cuobjdump,
+                                     strict=False)}
+
+    def run(fn, q, k, v, causal, window):
+        o = torch.empty_like(q)
+        b, hq, s, d = q.shape
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), 1,
+                 b, hq, k.shape[1], s, d, int(causal), window,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"launch failed: cudaError_t {err}")
+        return o
+
+    def inputs(b, hq, hkv, s, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+                for shape in ((b, hq, s, 80), (b, hkv, s, 80),
+                              (b, hkv, s, 80))]
+
+    cases = [(b, hq, hkv, s, causal, window)
+             for b, hq, hkv, s, causal, window in (
+                 (2, 16, 16, 1024, False, 0), (1, 16, 16, 1000, False, 0),
+                 (4, 16, 16, 1024, False, 0), (1, 8, 4, 1100, True, 0),
+                 (1, 8, 2, 700, True, 0), (1, 4, 4, 300, True, 40),
+                 (1, 4, 4, 300, False, 40))] + [
+        (1, 4, 4, s, causal, 0) for s in (1, 15, 16, 63, 64, 65, 127, 128,
+                                          129, 257) for causal in (False, True)]
+    checked = {label: fn for label, fn in fns.items()
+               if not variants[label].get("diagnostic")}
+    errs = {label: 0.0 for label in checked}
+    for i, (b, hq, hkv, s, causal, window) in enumerate(cases):
+        q, k, v = inputs(b, hq, hkv, s, 100 + i)
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        for label, fn in checked.items():
+            got = run(fn, q, k, v, causal, window)
+            errs[label] = max(errs[label], compare(
+                torch, got, want, 2e-2,
+                f"{label} {(b, hq, hkv, s, causal, window)}")["max_abs_err"])
+    times = {}
+    for shape in ((8, 16, 16, 1024), (8, 16, 16, 1000)):
+        q, k, v = inputs(*shape, 7)
+        calls = {label: (lambda fn=fn: run(fn, q, k, v, False, 0))
+                 for label, fn in fns.items()}
+        calls["sdpa"] = lambda: F.scaled_dot_product_attention(q, k, v)
+        got = {label: [] for label in calls}
+        order = list(calls)
+        for r in range(3):
+            for label in order if r % 2 == 0 else order[::-1]:
+                got[label].append(device_ms(torch, calls[label]))
+        flops = 4 * shape[0] * shape[1] * 80 * flash_pairs(shape[3], False, 0)
+        times[f"S{shape[3]}"] = {
+            "bound_ms": bound_row(0, flops, BF16_FLOPS_PER_S)["bound_ms"],
+            **{label: {"ms": sum(t) / len(t), "rounds": t}
+               for label, t in got.items()}}
+    return {"phase": "flash80_variants",
+            "variants": {label: {k: str(v) if k == "csrc" else v
+                                 for k, v in spec.items()}
+                         for label, spec in variants.items()},
+            "max_abs_err": errs, "times": times, "report": report}
 
 
 def ab_ms(torch, a, b, timer=None) -> tuple[float, float]:
@@ -1829,7 +2029,8 @@ def hubert_phase(torch, dev) -> dict:
     the seed): one ``Model.forward`` over 8 x 1024 random frames with the
     launch counts set to 0 just before — the flash kernel (bidirectional,
     D 80) exactly once per layer, nothing else, finite logits of the
-    expected shape — then its wall and device time and the peak memory;
+    expected shape — then its wall and device time, flash's device time
+    and share of it, and the peak memory;
     then ``parity``: a 2-layer full-width cut in f32 (TF32 off), the
     kernel route's logits against the plain route's within 2e-4."""
     from repro_torch.configs import get_config
@@ -1874,12 +2075,14 @@ def hubert_phase(torch, dev) -> dict:
         forward()
     torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / n
+    device, flash = device_ms(torch, forward, 2, only="flash")
     out = {"phase": "hubert", "model": cfg.name, "n_layers": cfg.n_layers,
            "d_model": cfg.d_model, "head_dim": cfg.resolved_head_dim,
            "dtype": "bfloat16", "params": cfg.param_count(),
            "frames": [b, s], "init_s": init_s, "first_forward_s": first_s,
            "forward_wall_ms": wall_ms,
-           "forward_device_ms": device_ms(torch, forward, 2),
+           "forward_device_ms": device, "flash_device_ms": flash,
+           "flash_share": flash / device,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "launches": launches,
            "logit_absmax": float(logits.float().abs().max())}
@@ -2439,6 +2642,11 @@ def main() -> int:
         model.init(torch.Generator(device=dev).manual_seed(SEED))
         torch.cuda.synchronize()
         return model, time.perf_counter() - t0
+
+    if "--flash80-variants" in sys.argv[1:]:
+        rest = sys.argv[sys.argv.index("--flash80-variants") + 1:]
+        emit(flash80_variants(torch, dev, Path(rest[0]) if rest else None))
+        return 0
 
     if "--profile" in sys.argv[1:]:
         for name, engine_kw, l_in in (("qwen7b", ENGINE, 512),

@@ -15,6 +15,14 @@
 //   MN-major (the output axis contiguous, "transposed"): SBO = 1024 (the
 //     next 8 rows of the reduction axis), LBO = the distance between two
 //     64-column blocks; the k-th 16-row step starts 2048 k bytes in.
+// The 32-byte swizzle (CU_TENSOR_MAP_SWIZZLE_32B, descriptor layout type
+// 3) holds a block of 16 columns: rows 32 bytes apart, the 16-byte chunk
+// c of row r at chunk c ^ ((r / 4) % 2), blocks 256-byte aligned.  K-major:
+// SBO = 256 (8 rows), LBO unused, one 16-element step per block.
+// MN-major: SBO = 256 (the next 8 rows of the reduction axis), LBO the
+// distance between two 16-column blocks; the k-th 16-row step starts
+// 512 k bytes in.  Flash attention at D 80 cuts its rows into a 64-column
+// block in the 128-byte swizzle and a 16-column block in this one.
 //
 // The host side fetches cuTensorMapEncodeTiled from the driver with
 // cudaGetDriverEntryPoint, so the libraries link against nothing beyond
@@ -94,6 +102,12 @@ DEV void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrive at named barrier `id` without waiting for it: the `threads`
+// (whole warps) that complete it are these and those that sync on it.
+DEV void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- TMA -----------------------------------------------------------------
 
 DEV void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
@@ -153,6 +167,20 @@ DEV uint64_t desc_sw128(const void* p, uint32_t lbo, uint32_t sbo) {
          (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// Descriptor of a 32-byte-swizzled bf16 operand starting at `p`.
+DEV uint64_t desc_sw32(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (3ull << 62);
+}
+
+// 2^x on the special-function unit, subnormals flushed to zero.
+DEV float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Two floats as a bf16 pair (lo in the low half), rounded to nearest.
 DEV uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -188,9 +216,25 @@ DEV int acc_col(int tid, int i) {
 }
 
 // The products the kernels use: m64n{32,64}k16 with both operands in shared
-// memory (ss), and m64nNk16 with A in registers and B MN-major (rs_mn).
+// memory (ss), and m64nNk16 with A in registers and B K-major (rs) or
+// MN-major (rs_mn).
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  // d (64 x 16, f32) += A (64 x 16, bf16 registers) B (16 x 16, bf16 in
+  // shared memory, MN-major: the 16 columns contiguous)
+  static DEV void rs_mn(float (&d)[8], const uint32_t (&a)[4], uint64_t db,
+                        int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+  }
+};
 
 template <>
 struct Wgmma<32> {
@@ -221,6 +265,20 @@ struct Wgmma<64> {
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(acc));
+  }
+  // d (64 x 64, f32) += A (64 x 16, bf16 registers) B (16 x 64, bf16 in
+  // shared memory, K-major)
+  static DEV void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                     int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
   }
   // d (64 x 64, f32) += A (64 x 16, bf16 registers) B (16 x 64, bf16 in
   // shared memory, MN-major: the 64 columns contiguous)
@@ -322,18 +380,19 @@ inline EncodeTiled encoder() {
 }
 
 // A tensor map over a bf16 tensor of `rank` dims (dims[0] contiguous),
-// strides in bytes of dims 1.., a box of box[] elements, 128-byte swizzle
-// (box[0] * 2 <= 128) and zeros outside the tensor.  False on failure.
+// strides in bytes of dims 1.., a box of box[] elements, the given
+// swizzle (128-byte by default; box[0] * 2 no wider than the swizzle) and
+// zeros outside the tensor.  False on failure.
 inline bool tmap_bf16(CUtensorMap* map, const void* base, int rank,
                       const uint64_t* dims, const uint64_t* strides,
-                      const uint32_t* box) {
+                      const uint32_t* box,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiled fn = encoder();
   if (fn == nullptr) return false;
   cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
             const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

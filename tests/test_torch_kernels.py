@@ -727,10 +727,10 @@ def test_flash_attention_tensor_core_kernel_matches_plain(
 def test_flash_attention_d80_kernel_matches_plain(cuda, dtype, b, hq, hkv,
                                                   s, d, causal, window):
     """The D 80 instance (hubert's head dim): bf16 on the tensor cores
-    (rows laid out as 128 columns with TMA's zero fill), f32 on the CUDA
-    cores, bidirectional, causal and windowed, ragged S; rtol = atol =
-    2e-5 in f32, 2e-2 in bf16, where the CUDA-core instance must agree
-    too."""
+    (rows as a 64-column block in the 128-byte swizzle and a 16-column
+    block in the 32-byte one), f32 on the CUDA cores, bidirectional,
+    causal and windowed, ragged S; rtol = atol = 2e-5 in f32, 2e-2 in
+    bf16, where the CUDA-core instance must agree too."""
     dt = getattr(torch, dtype)
     q, k, v = _card_attn(cuda, s + d + window, b, hq, hkv, s, d, dt)
     want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
@@ -741,6 +741,55 @@ def test_flash_attention_d80_kernel_matches_plain(cuda, dtype, b, hq, hkv,
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [1, 15, 16, 63, 64, 65, 127, 128, 129])
+def test_flash_attention_d80_tile_edges(cuda, s, causal):
+    """The D 80 tensor-core instance at the edges of its tiles: S around
+    a 16-key step of P V, the 64-key KV tile and the 128-row query tile
+    (rows and keys past S zero-filled by TMA, masked and not stored);
+    rtol = atol = 2e-2."""
+    q, k, v = _card_attn(cuda, 80 + s, 2, 4, 4, s, 80, torch.bfloat16)
+    got = flash_mod.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,causal,window", [
+    (4, 16, 16, 1024, False, 0),  # 512 blocks: ~3.9 waves on 132 SMs
+    (2, 16, 8, 1024, True, 0),    # causal, GQA 2
+    (2, 16, 4, 1100, True, 0),    # causal, GQA 4, ragged S
+    (1, 8, 4, 700, True, 40),     # windows that cut a 64-key tile
+    (1, 8, 8, 700, False, 100),
+])
+def test_flash_attention_d80_grid_and_masks(cuda, b, hq, hkv, s, causal,
+                                            window):
+    """The D 80 tensor-core instance over a grid of several waves, causal
+    with GQA 2 and 4, and windows whose edge falls inside a KV tile;
+    rtol = atol = 2e-2."""
+    q, k, v = _card_attn(cuda, s + window, b, hq, hkv, s, 80,
+                         torch.bfloat16)
+    got = flash_mod.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_d80_deterministic(cuda):
+    """Two calls on the same inputs at hubert's shape are bitwise equal:
+    each output row is summed in one fixed order, with no atomics."""
+    q, k, v = _card_attn(cuda, 80, 8, 16, 16, 1024, 80, torch.bfloat16)
+    first = flash_mod.flash_attention(q, k, v, causal=False)
+    second = flash_mod.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def _decode_lens(b, hq, hkv, s, d, itemsize):
