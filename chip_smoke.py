@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
-``build/kernels/``), then runs seventeen phases, each printing a JSON
+``build/kernels/``), then runs eighteen phases, each printing a JSON
 line (``hybrid`` and ``moe`` a second one for their hand-offs,
 ``parity`` one per model):
 
@@ -33,7 +33,9 @@ line (``hybrid`` and ``moe`` a second one for their hand-offs,
    contiguous decode kernel beside the split kernel it replaced
    (``legacy_ms``, in turns) at gemma3's, qwen7b's, zamba2's and a GQA-5
    group's (40 / 8 heads) bf16 shapes, with chunks of 128 and 256
-   positions at gemma3's (``split_probe_ms``).
+   positions at gemma3's (``split_probe_ms``); the paged decode kernel
+   also at qwen32b's GQA 40 / 8 (``cases.gqa40_8_bf16``, beside SDPA
+   with ``enable_gqa``).
 3. ``serve``   — qwen7b at full width in bf16 (weights drawn on the card
    from a seeded generator) serving 16 Table-1 requests through the
    paged engine; every request must finish with its ``l_out`` tokens
@@ -154,7 +156,23 @@ line (``hybrid`` and ``moe`` a second one for their hand-offs,
    1.27 GB checkpoint) and on the smoke qwen2.5-14b: history, final
    parameters and optimizer state equal an uninterrupted run's bit for
    bit, with deterministic algorithms on.
-17. ``qwen32b`` — qwen32b at full width in bf16 (64 layers, d 5120, 40
+17. ``train_pod`` — the int8 pod-axis gradient sync
+   (``distributed/compression.py``).  Full-width hubert-xlarge in f32
+   (TF32 off), remat, the plain attention, batch 8 x 512 in one pass (the
+   compressed path takes no micro-batches), on a ``(pod 1, data 1,
+   model 1)`` ``DeviceMesh`` over a one-rank NCCL group: two plain
+   value-and-grads bitwise equal (else the checks hold to one
+   quantization step), the compressed loss bitwise equal to the plain
+   one and each leaf's gradient equal to ``dequantize(quantize(g))``, 3
+   compressed train steps with finite losses, no kernel launched;
+   prints s/step compressed and plain, the sync's device ms and payload
+   bytes, leaves, collectives and peak memory.  Then two spawned ranks
+   sharing ``cuda:0`` over gloo (NCCL refuses two ranks on one device)
+   on a 4-layer full-width cut, against the one-process mean over the
+   two halves: loss and uncompressed gradients within 1e-5, compressed
+   within half a step plus that, both ranks' parameters bitwise equal
+   after a step; the gloo sync's wall ms (host-staged).
+18. ``qwen32b`` — qwen32b at full width in bf16 (64 layers, d 5120, 40
    heads over 8 KV heads of 128, QKV bias; 32.5 B parameters, 65 GB),
    alone on the card after every other model is freed, serving
    ``serve``'s 16 requests on the paged plane (the ``serve`` checks);
@@ -174,6 +192,11 @@ grid, 64 keys a KV tile, other ring depths, diagnostics that leave out
 the exp2 or the warpgroups' turns) and, given the kernel sources of
 another checkout, that checkout's flash attention; holds each to the
 plain version and times each beside SDPA at hubert's shape, in turns.
+
+    python3 chip_smoke.py --train-pod
+
+instead runs only the ``train_pod`` phase, with no kernel built (it
+launches none).
 
     python3 chip_smoke.py --profile
 
@@ -245,6 +268,12 @@ HUBERT_FRAMES = (8, 1024)
 # micro-batches; crash/resume runs of 6 steps, crashing after 3
 TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS, RESUME_STEPS = (8, 512), 2, 6, 6
 TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+# train_pod phase: the int8 pod-axis gradient sync; full-width hubert on
+# a 1-pod mesh over TRAIN_BATCH in one pass (the compressed path takes
+# no micro-batches), then 2 pods sharing the card (gloo) on a cut
+POD_AXES = ("pod", "data", "model")
+POD_STEPS, POD_LAYERS, POD_TOL = 3, 4, 1e-5
+POD_DIR = ROOT / "build" / "train_pod"
 
 
 def emit(obj) -> None:
@@ -348,10 +377,11 @@ def kernels_phase(torch, dev):
         if kw.get("zero_row"):
             check(bool((got[0] == 0).all()), f"{name}: kv_len 0 row != 0")
 
-    def paged_timing(d):
-        """Timing at the main path's decode shape and dtype."""
+    def paged_timing(d, hq=32, hkv=32):
+        """Timing at the main path's decode shape and dtype (qwen32b's
+        GQA 40 / 8 with ``hq``, ``hkv``)."""
         q, k, v, table, kv_len = attention_inputs(
-            torch, dev, dtype=torch.bfloat16, hq=32, hkv=32, d=d)
+            torch, dev, dtype=torch.bfloat16, hq=hq, hkv=hkv, d=d)
         b, hq, _ = q.shape
         hkv, ps = k.shape[1], k.shape[2]
         lens = kv_len.cpu().numpy().astype(np.int64)
@@ -371,7 +401,8 @@ def kernels_phase(torch, dev):
                 lambda: ref.paged_decode_attention_ref(q, k, v, table,
                                                        kv_len),
                 lambda: F.scaled_dot_product_attention(
-                    q[:, :, None, :], kc, vc, attn_mask=mask), 50),
+                    q[:, :, None, :], kc, vc, attn_mask=mask,
+                    enable_gqa=hq != hkv), 50),
             **bound_row(att_bytes, att_flops, BF16_FLOPS_PER_S),
             "shape": {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "ps": ps,
                       "MP": table.shape[1], "sum_kv_len": int(lens.sum()),
@@ -381,6 +412,7 @@ def kernels_phase(torch, dev):
     att = {**paged_timing(128),
            "max_abs_err": cases["mha_bf16"]["max_abs_err"]}
     cases["zamba2_d112_bf16"].update(paged_timing(112))
+    cases["gqa40_8_bf16"].update(paged_timing(128, hq=40, hkv=8))
     torch.cuda.empty_cache()
 
     # page gather: exactness with -1 ids, then time at the pd export shape
@@ -424,7 +456,8 @@ def kernels_phase(torch, dev):
     emit({"phase": "kernels", "paged_decode_attention": {**att,
           "cases": cases}, "page_gather": gat, "flash_attention": flash,
           "decode_attention": dec, "ssd": ssd, "rmsnorm": norm})
-    return {"paged_decode_attention": att, "page_gather": gat,
+    return {"paged_decode_attention": {**att, "cases": cases},
+            "page_gather": gat,
             "flash_attention": flash, "decode_attention": dec, "ssd": ssd,
             "rmsnorm": norm}
 
@@ -2285,6 +2318,341 @@ def crash_resume(torch, dev, cfg, data) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the pod-axis gradient sync
+# ---------------------------------------------------------------------------
+
+
+def quantized_leaf(torch, grads: dict, names) -> list:
+    """``dequantize(*quantize(g))`` of one leaf (its tensors quantized as
+    one, as the JAX tree stacks them): what a 1-pod compressed sync must
+    return, and the leaf's scale."""
+    from repro_torch.distributed.compression import dequantize, quantize
+
+    q, scale = quantize(torch.cat([grads[n].flatten() for n in names]))
+    want = dequantize(q, scale).split([grads[n].numel() for n in names])
+    return want, float(scale)
+
+
+def train_pod_phase(torch, dev) -> dict:
+    """(a) Full-width hubert-xlarge in f32 (TF32 off, stated),
+    ``remat=True``, the plain attention, on a ``(pod 1, data 1, model
+    1)`` mesh over a one-rank NCCL group, batch 8 x 512 in one pass:
+    two plain value-and-grads (bitwise equal, or the checks below hold
+    to one quantization step instead); the compressed value-and-grad's
+    loss bitwise equal to the plain one and each leaf's gradient equal
+    to ``dequantize(*quantize(g_plain))``; ``POD_STEPS`` compressed
+    ``build_train_step`` steps with finite losses, then as many plain
+    ones; no kernel launched.  Prints s/step both ways (after the first
+    step), the sync's device and event ms, its payload bytes, leaves and
+    collectives, and peak memory.  (b) ``pod_pair``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compression import (
+        pod_manual_value_and_grad,
+        sync_pod_grads,
+    )
+    from repro_torch.kernels import ops
+    from repro_torch.models.build import Model
+    from repro_torch.models.convert import stacked_leaves
+    from repro_torch.training.data import DataConfig, make_batch
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_loop import (
+        TrainConfig,
+        build_train_step,
+        trained_params,
+        value_and_grad,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("hubert-xlarge")
+    b, s = TRAIN_BATCH
+    data = DataConfig(batch=b, seq_len=s, seed=SEED)
+
+    def batch(step):
+        return {k: torch.as_tensor(v, device=dev)
+                for k, v in make_batch(cfg, data, step).items()}
+
+    model = Model(cfg, device=dev, remat=True, use_kernels=False)
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    params = trained_params(model)
+    leaves = stacked_leaves(cfg, params)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1, 1), mesh_dim_names=POD_AXES)
+        group = mesh.get_group("pod")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        batch0 = batch(0)
+        loss, grads = value_and_grad(model, params, batch0)
+        loss2, grads2 = value_and_grad(model, params, batch0)
+        deterministic = bool(torch.equal(loss, loss2)) and all(
+            torch.equal(grads[n], grads2[n]) for n in grads)
+        del grads2
+        vg = pod_manual_value_and_grad(lambda p, bt: model.loss(bt), mesh,
+                                       leaves=leaves)
+        loss_c, grads_c = vg(params, batch0)
+        check(bool(torch.equal(loss_c, loss)) or not deterministic,
+              f"train_pod: compressed loss {float(loss_c)} != plain "
+              f"{float(loss)}")
+        worst = 0.0       # largest |error| in quantization steps
+        for names in leaves:
+            want, scale = quantized_leaf(torch, grads, names)
+            for n, w in zip(names, want):
+                if deterministic:
+                    check(torch.equal(grads_c[n], w.view_as(grads_c[n])),
+                          f"train_pod: {n}: compressed != "
+                          f"dequantize(quantize(g_plain))")
+                err = float((grads_c[n] - w.view_as(grads_c[n])).abs().max())
+                worst = max(worst, err / scale)
+        check(worst <= 1.0, f"train_pod: compressed gradient {worst} "
+                            f"quantization steps from g_plain's")
+        del grads_c
+
+        # the sync alone, on the plain gradients (each call re-syncs the
+        # last call's output: the same work)
+        def sync():
+            sync_pod_grads(grads, group, leaves=leaves)
+
+        sync_device_ms = device_ms(torch, sync, iters=3)
+        sync_event_ms = cuda_ms(torch, sync, iters=3, warmup=1)
+        del grads
+
+        def run(train_cfg, mesh_or_none):
+            step_fn = build_train_step(model, train_cfg, mesh_or_none)
+            opt_state = adamw_init(params)
+            times, losses = [], []
+            for i in range(POD_STEPS):
+                bt = batch(i)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, opt_state, m = step_fn(params, opt_state, bt)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(m["loss"]))
+            return times, losses
+
+        c_times, c_losses = run(TrainConfig(grad_compression=True), mesh)
+        check(all(np.isfinite(c_losses)),
+              f"train_pod: compressed losses {c_losses}")
+        p_times, p_losses = run(TrainConfig(), None)
+        check(all(np.isfinite(p_losses)), f"train_pod: losses {p_losses}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launches = ops.launch_counts()
+    finally:
+        dist.destroy_process_group()
+    check(not any(launches.values()),
+          f"train_pod: the plain training route launched kernels {launches}")
+    n_elems = sum(p.numel() for p in params.values())
+    out = {"phase": "train_pod", "model": cfg.name, "n_layers": cfg.n_layers,
+           "params": n_elems, "dtype": "float32", "tf32": False,
+           "remat": True, "batch": [b, s], "micro_batches": 1,
+           "mesh": dict(zip(POD_AXES, (1, 1, 1))), "backend": "nccl",
+           "deterministic": deterministic,
+           "loss_bitwise": bool(torch.equal(loss_c, loss)),
+           "max_err_quant_steps": worst,
+           "leaves": len(leaves), "tensors": len(params),
+           # per step: a max per leaf, a sum per tensor, the loss's mean
+           "collectives": len(leaves) + len(params) + 1,
+           "payload_bytes": 4 * n_elems + 4 * len(leaves),
+           "sync_device_ms": sync_device_ms, "sync_event_ms": sync_event_ms,
+           "step_s_compressed": c_times, "step_s_plain": p_times,
+           "s_per_step_compressed": float(np.mean(c_times[1:])),
+           "s_per_step_plain": float(np.mean(p_times[1:])),
+           "loss_compressed": c_losses, "loss_plain": p_losses,
+           "peak_mem_gb": peak, "launches": launches}
+    out["sync_share"] = (out["sync_device_ms"] / 1e3
+                         / out["s_per_step_compressed"])
+    del model, params
+    torch.cuda.empty_cache()
+    out["two_pods"] = pod_pair(torch, dev, dataclasses.replace(
+        cfg, n_layers=POD_LAYERS), data)
+    emit(out)
+    return out
+
+
+def pod_pair(torch, dev, cfg, data) -> dict:
+    """(b) Two pods sharing the card: two processes on ``cuda:0`` with a
+    gloo group (NCCL refuses two ranks on one device; gloo stages the
+    CUDA tensors through the host), ``cfg`` (hubert cut to
+    ``POD_LAYERS`` layers at full width, f32) over ``data``'s batch split
+    in two.  Against the one-process reference (saved to ``POD_DIR``):
+    the mean of the two halves' losses and gradients, which is what the
+    pod sync computes — hubert's masked loss divides by each block's own
+    mask count, so the mean over the pods is not the whole batch's loss,
+    in the JAX package too.  Loss within ``POD_TOL`` relative;
+    uncompressed gradients within ``POD_TOL`` of each leaf's max |g|;
+    compressed ones within half the leaf's shared scale of the reference
+    plus that tolerance; after one compressed ``build_train_step`` both
+    ranks' parameters bitwise equal.  Prints the gloo sync's wall ms,
+    host-staged: not a speed of the card."""
+    import torch.multiprocessing as mp
+
+    from repro_torch.models.build import Model
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.train_loop import trained_params, value_and_grad
+
+    shutil.rmtree(POD_DIR, ignore_errors=True)
+    POD_DIR.mkdir(parents=True)
+    model = Model(cfg, device=dev, remat=True, use_kernels=False)
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    half = data.batch // 2
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in make_batch(cfg, data, 0).items()}
+    parts = [value_and_grad(model, trained_params(model),
+                            {k: v[i * half:(i + 1) * half]
+                             for k, v in batch.items()}) for i in range(2)]
+    loss = (parts[0][0] + parts[1][0]) / 2
+    grads = {n: (parts[0][1][n] + parts[1][1][n]) / 2 for n in parts[0][1]}
+    torch.save({"loss": loss, "grads": grads}, POD_DIR / "reference.pt")
+    del model, grads, parts
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(pod_rank, args=(cfg, data), nprocs=2,
+                             start_method="spawn", join=False)
+    deadline = time.monotonic() + 300
+    while not ctx.join(timeout=1.0):
+        if time.monotonic() > deadline:
+            for proc in ctx.processes:
+                proc.kill()
+            raise AssertionError("train_pod: the two ranks ran over 300 s")
+    wall = time.perf_counter() - t0
+    codes = [proc.exitcode for proc in ctx.processes]
+    check(codes == [0, 0], f"train_pod: rank exit codes {codes}")
+    ranks = [json.loads((POD_DIR / f"rank{r}.json").read_text())
+             for r in range(2)]
+    shutil.rmtree(POD_DIR, ignore_errors=True)
+    for r in ranks:
+        check(r["loss_rel_err"] <= POD_TOL,
+              f"train_pod: rank {r['rank']} loss rel err {r['loss_rel_err']}")
+        check(r["plain_rel_err"] <= POD_TOL,
+              f"train_pod: rank {r['rank']} uncompressed gradient rel err "
+              f"{r['plain_rel_err']}")
+        check(r["compressed_over_bound"] <= 1.0,
+              f"train_pod: rank {r['rank']} compressed gradient at "
+              f"{r['compressed_over_bound']} x its bound")
+        check(r["params_equal_across_ranks"],
+              f"train_pod: rank {r['rank']}: parameters differ across ranks")
+        check(r["sync_matches_vg"], f"train_pod: rank {r['rank']}: the "
+                                    f"timed sync != the value_and_grad's")
+    return {"model": cfg.name, "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "batch": [data.batch, data.seq_len],
+            "split": [data.batch // 2] * 2, "backend": "gloo",
+            "mesh": dict(zip(POD_AXES, (2, 1, 1))), "wall_s": wall,
+            "tol": POD_TOL, "ranks": ranks}
+
+
+def pod_rank(rank: int, cfg, data) -> None:
+    """One of ``pod_pair``'s two ranks (a spawned process on ``cuda:0``):
+    the uncompressed and the compressed value-and-grad on its half of
+    the batch against the saved reference, the sync alone timed on the
+    wall clock, one compressed train step, and whether the parameters
+    after it equal the other rank's (their max and min over the ranks
+    agree); writes ``rank{rank}.json`` to ``POD_DIR``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.distributed.compression import (
+        pod_manual_value_and_grad,
+        sync_pod_grads,
+        value_and_grad,
+    )
+    from repro_torch.models.build import Model
+    from repro_torch.models.convert import stacked_leaves
+    from repro_torch.training.data import make_batch
+    from repro_torch.training.optimizer import adamw_init
+    from repro_torch.training.train_loop import (
+        TrainConfig,
+        build_train_step,
+        trained_params,
+    )
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(POD_DIR / "store"), 2), rank=rank,
+        world_size=2, timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = init_device_mesh("cuda", (2, 1, 1), mesh_dim_names=POD_AXES)
+        group = mesh.get_group("pod")
+        ref = torch.load(POD_DIR / "reference.pt", map_location=dev)
+        model = Model(cfg, device=dev, remat=True, use_kernels=False)
+        model.init(torch.Generator(device=dev).manual_seed(SEED))
+        params = trained_params(model)
+        leaves = stacked_leaves(cfg, params)
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in make_batch(cfg, data, 0).items()}
+
+        def loss_fn(p, bt):
+            return model.loss(bt)
+
+        loss_p, grads_p = pod_manual_value_and_grad(
+            loss_fn, mesh, compress=False)(params, batch)
+        loss_c, grads_c = pod_manual_value_and_grad(
+            loss_fn, mesh, leaves=leaves)(params, batch)
+        want = float(ref["loss"])
+        out = {"rank": rank, "pod": mesh.get_local_rank("pod"),
+               "loss_compressed": float(loss_c), "loss_plain": float(loss_p),
+               "loss_reference": want,
+               "loss_rel_err": max(abs(float(loss_c) - want),
+                                   abs(float(loss_p) - want)) / abs(want)}
+        # this pod's gradients alone, then the sync alone on the wall clock
+        half = data.batch // 2
+        _, local = value_and_grad(loss_fn)(
+            params, {k: v[rank * half:(rank + 1) * half]
+                     for k, v in batch.items()})
+        scales = {}
+        for names in leaves:
+            m = torch.stack([local[n].abs().max() for n in names]).max()
+            dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+            scales[names[0]] = max(float(m) / 127.0, 1e-12)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync_pod_grads(local, group, leaves=leaves)
+        torch.cuda.synchronize()
+        out["sync_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+        out["sync_matches_vg"] = all(torch.equal(local[n], grads_c[n])
+                                     for n in local)
+        del local
+        plain_err = over = 0.0
+        for names in leaves:
+            gmax = max(float(ref["grads"][n].abs().max()) for n in names)
+            tol = POD_TOL * gmax
+            bound = scales[names[0]] / 2 + tol
+            for n in names:
+                plain_err = max(plain_err, float(
+                    (grads_p[n] - ref["grads"][n]).abs().max()) / max(gmax,
+                                                                      1e-30))
+                over = max(over, float(
+                    (grads_c[n] - ref["grads"][n]).abs().max()) / bound)
+        out["plain_rel_err"], out["compressed_over_bound"] = plain_err, over
+        del grads_p, grads_c, ref
+        step = build_train_step(model, TrainConfig(grad_compression=True),
+                                mesh)
+        _, _, metrics = step(params, adamw_init(params), batch)
+        out["step_loss"] = float(metrics["loss"])
+        same = True
+        for p in params.values():
+            hi, lo = p.detach().clone(), p.detach().clone()
+            dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=group)
+            dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=group)
+            same = same and bool(torch.equal(hi, p)) and bool(
+                torch.equal(lo, p))
+        out["params_equal_across_ranks"] = same
+        (POD_DIR / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
 # phases 12-13: kernel path vs plain path, the features on and off, f32
 # ---------------------------------------------------------------------------
 
@@ -2625,6 +2993,10 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+    if "--train-pod" in sys.argv[1:]:
+        print(smi, flush=True)
+        train_pod_phase(torch, dev)
+        return 0
     build_s = _build.build_all()
     for name, log in _build.build_log.items():
         for line in log.splitlines():
@@ -2702,6 +3074,7 @@ def main() -> int:
     parity_phase(torch, dev, get_config("olmoe-1b-7b"))
     hubert = hubert_phase(torch, dev)
     train = train_phase(torch, dev)
+    train_pod = train_pod_phase(torch, dev)
     # qwen32b's 65 GB of bf16 weights need the card to itself: every
     # other model is gone by now
     torch.cuda.reset_peak_memory_stats()
@@ -2719,7 +3092,7 @@ def main() -> int:
                   "mamba": mamba, "hybrid": hybrid, "hybrid_pd": hybrid_pd,
                   "feature_parity": feature_parity, "moe": moe_out,
                   "moe_pd": moe_pd, "hubert": hubert, "train": train,
-                  "qwen32b": qwen32b}
+                  "train_pod": train_pod, "qwen32b": qwen32b}
     csrc = "src/repro_torch/kernels/csrc"
     kernels = []
     for name, replaces in (
@@ -2749,6 +3122,14 @@ def main() -> int:
                for k in ("ms", "fma_ms", "plain_ms", "library_ms",
                          "bound_ms", "bound_by", "max_abs_err", "shape")}
         for name in ("hubert_d80_bf16", "hubert_d80_ragged1000_bf16")}
+    # qwen32b's GQA 40 / 8 beside the MHA shape the paged row reports
+    paged_cases = rows["paged_decode_attention"]["cases"]
+    paged_row = next(k for k in kernels
+                     if k["name"] == "paged_decode_attention")
+    paged_row["gqa40_8"] = {
+        k: paged_cases["gqa40_8_bf16"][k]
+        for k in ("ms", "plain_ms", "library_ms", "event_ms", "bound_ms",
+                  "bound_by", "max_abs_err", "shape")}
     # rmsnorm has no call site in the model (nor in the JAX package's):
     # its 0 launches on the main paths are expected; every other kernel
     # must have run there

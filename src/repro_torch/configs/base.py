@@ -12,13 +12,41 @@ hyper-parameters plus the *layer pattern* the model builder reads:
 - ``encoder``      — bidirectional (non-causal) attention block
 
 A model is a sequence of *segments* ``(kind, count)``; the port's
-``models/build.py`` runs every kind.
+``models/build.py`` runs every kind.  The assigned shape suite
+(:data:`SHAPES`, ``ModelConfig.shapes()``) and :func:`mfu_flops` are
+copied too, for the dry-run tooling.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
+
+# ---------------------------------------------------------------------------
+# Shapes (assigned input-shape suite, identical for every LM architecture)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One (seq_len, global_batch) evaluation cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +108,20 @@ class ModelConfig:
         return self.d_model // self.n_heads if self.n_heads else 0
 
     @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
     def is_encoder_only(self) -> bool:
         return not self.causal
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Whether the arch supports very-long-context decode (long_500k):
+        SSM and hybrid archs keep O(1) state per token, and gemma3's 5:1
+        local:global pattern bounds the quadratic part to 1/6 of its
+        layers; pure full-attention archs are skipped."""
+        return self.family in ("ssm", "hybrid") or self.local_global_ratio > 0
 
     def layer_pattern(self) -> Tuple[Tuple[str, int], ...]:
         """Return the segment list ``((kind, count), ...)``."""
@@ -169,6 +209,26 @@ class ModelConfig:
         act_ffn = self.n_layers * m.top_k * 3 * d * m.expert_d_ff
         return self.param_count() - full_ffn + act_ffn
 
+    def shapes(self) -> Sequence[ShapeSpec]:
+        """The shape cells that apply to this architecture (with skips)."""
+        out = [SHAPES["train_4k"], SHAPES["prefill_32k"]]
+        if not self.is_encoder_only:
+            out.append(SHAPES["decode_32k"])
+            if self.sub_quadratic:
+                out.append(SHAPES["long_500k"])
+        return out
+
+    def skipped_shapes(self) -> Sequence[Tuple[str, str]]:
+        out = []
+        if self.is_encoder_only:
+            out.append(("decode_32k", "encoder-only: no decode step"))
+            out.append(("long_500k", "encoder-only: no decode step"))
+        elif not self.sub_quadratic:
+            out.append(
+                ("long_500k", "pure full-attention arch: 500k decode skipped")
+            )
+        return out
+
 
 def reduce_config(cfg: ModelConfig) -> ModelConfig:
     """Shrink a config to a CPU-runnable smoke variant of the same family."""
@@ -211,3 +271,44 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
         ssm=ssm,
         shared_attn_period=2 if cfg.family == "hybrid" else 0,
     )
+
+
+def mfu_flops(cfg: ModelConfig, shape: ShapeSpec) -> float:
+    """MODEL_FLOPS for the roofline 'useful flops' ratio.
+
+    train:   6 * N_active * tokens  (+3x fwd attention flops)
+    prefill: 2 * N_active * tokens  (+1x fwd attention flops)
+    decode:  2 * N_active * batch   (one token per sequence)
+    """
+    n_active = cfg.active_param_count()
+    if shape.kind == "train":
+        base = 6.0 * n_active * shape.tokens
+        attn_mult = 3.0
+    elif shape.kind == "prefill":
+        base = 2.0 * n_active * shape.tokens
+        attn_mult = 1.0
+    else:
+        base = 2.0 * n_active * shape.global_batch
+        attn_mult = 1.0
+
+    # attention flops (QK^T + PV), causal halving for causal archs
+    attn = 0.0
+    hd = cfg.resolved_head_dim
+    for kind, count in cfg.layer_pattern():
+        if kind in ("dense", "moe", "global", "encoder", "shared_attn"):
+            s_eff = shape.seq_len
+        elif kind == "local":
+            s_eff = min(cfg.window, shape.seq_len)
+        else:  # mamba: linear state update, counted via param flops + state
+            continue
+        if shape.kind == "decode":
+            # one query token attends to the full cache
+            flops = 4.0 * shape.global_batch * shape.seq_len * cfg.n_heads * hd
+        else:
+            causal = 0.5 if cfg.causal else 1.0
+            flops = (
+                4.0 * shape.global_batch * shape.seq_len * s_eff
+                * cfg.n_heads * hd * causal
+            )
+        attn += count * flops
+    return base + attn_mult * attn

@@ -163,3 +163,19 @@ def params_from_jax(tree, cfg: ModelConfig) -> dict[str, torch.Tensor]:
             arr = arr.reshape((-1,) + arr.shape[n_lead:])[i]
         out[name] = torch.tensor(arr)
     return out
+
+
+def stacked_leaves(cfg: ModelConfig, names) -> list[list[str]]:
+    """The port's parameter ``names`` grouped as the JAX tree holds
+    them: one list per leaf, with the layers that a segment stacks into
+    one leaf together and every other tensor alone."""
+    segment = {i: key for key, (idx, _) in _layer_map(cfg).items()
+               for i in idx}
+    groups: dict = {}
+    for name in names:
+        key = name
+        if name.startswith("layers."):
+            _, i, part = name.split(".", 2)
+            key = (segment[int(i)], part)
+        groups.setdefault(key, []).append(name)
+    return list(groups.values())

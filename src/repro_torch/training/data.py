@@ -1,6 +1,5 @@
 """Deterministic, stateless, resumable synthetic data pipeline (copy of
-``repro/training/data.py``; the JAX package's ``batch_spec``, shapes
-for its dry-run, has no counterpart here).
+``repro/training/data.py``).
 
 Batches are pure functions of (seed, step): restart/resume needs no
 iterator state, a checkpointed step counter is enough — the pipeline is
@@ -13,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ModelConfig
 
@@ -37,3 +37,23 @@ def make_batch(cfg: ModelConfig, data: DataConfig, step: int) -> dict:
         return {"frames": frames, "labels": labels, "mask": mask}
     tokens = rng.integers(0, cfg.vocab_size, (b, s + 1)).astype(np.int32)
     return {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+
+
+def batch_spec(cfg: ModelConfig, data: DataConfig) -> dict:
+    """Meta tensors matching make_batch's shapes and dtypes (for a
+    meta-device dry-run; nothing is allocated)."""
+    b, s = data.batch, data.seq_len
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    if cfg.frontend == "frames":
+        return {
+            "frames": meta((b, s, cfg.d_model), torch.float32),
+            "labels": meta((b, s), torch.int32),
+            "mask": meta((b, s), torch.float32),
+        }
+    return {
+        "tokens": meta((b, s), torch.int32),
+        "labels": meta((b, s), torch.int32),
+    }

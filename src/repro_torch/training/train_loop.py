@@ -11,19 +11,21 @@ updates them in place.  The model should be built with
 remat=True)`` is: no kernel has a backward in either package (the ops
 wrappers raise rather than cut a gradient).
 
-The JAX package's manual int8 cross-pod gradient sync
-(``grad_compression`` over a mesh's ``pod`` axis) is not ported:
-passing a mesh raises, naming its ROADMAP item.
+With ``grad_compression`` and a mesh (a ``DeviceMesh``) with a ``pod``
+dimension, the step syncs the gradients over the pods as int8 steps
+(:mod:`repro_torch.distributed.compression`); every other mesh axis
+has nothing to do on one rank, as the port has no SPMD partitioner.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Optional
 
 import torch
 
+from repro_torch.distributed import compression
+from repro_torch.models.convert import stacked_leaves
 from repro_torch.training.optimizer import (
     AdamWConfig,
     AdamWState,
@@ -31,7 +33,7 @@ from repro_torch.training.optimizer import (
     adamw_update,
 )
 
-_MESH_ITEM = "ROADMAP.md §1 item 8 'Distributed + launch tooling'"
+_SHARDING_ITEM = "ROADMAP.md §1 item 8b (sharding plans)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,35 +49,26 @@ def trained_params(model) -> dict:
     return dict(model.named_parameters())
 
 
-@contextlib.contextmanager
-def _grads_on(leaves):
-    for p in leaves:
-        p.requires_grad_(True)
-    try:
-        with torch.enable_grad():
-            yield
-    finally:
-        for p in leaves:
-            p.requires_grad_(False)
-
-
 def value_and_grad(model, params: dict, batch: dict):
     """(loss, grads) of ``model.loss(batch)`` with respect to
     ``params``, which must be the model's own parameters.  A parameter
     no gradient reaches (a frames model's ``embed``) gets zeros, as
     ``jax.grad`` gives it."""
-    own = trained_params(model)
-    if own.keys() != params.keys() or any(
-            params[n] is not p for n, p in own.items()):
-        raise ValueError("params must be the model's own parameters "
-                         "(trained_params(model))")
-    leaves = list(params.values())
-    with _grads_on(leaves):
-        loss = model.loss(batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return loss.detach(), {
-        n: torch.zeros_like(p) if g is None else g
-        for (n, p), g in zip(params.items(), grads)}
+    return compression.value_and_grad(_model_loss(model))(params, batch)
+
+
+def _model_loss(model):
+    """``model.loss`` as a loss of (params, batch), where ``params`` must
+    be the model's own parameters: the model reads them itself."""
+    def loss(params, batch):
+        own = trained_params(model)
+        if own.keys() != params.keys() or any(
+                params[n] is not p for n, p in own.items()):
+            raise ValueError("params must be the model's own parameters "
+                             "(trained_params(model))")
+        return model.loss(batch)
+
+    return loss
 
 
 def _accumulate_grads(model, params: dict, batch: dict, n_micro: int):
@@ -111,13 +104,34 @@ def build_train_step(model, cfg: TrainConfig = TrainConfig(),
     opt_state, metrics): ``params`` (the model's own, see
     :func:`trained_params`) and the optimizer's moments are updated in
     place; metrics holds 0-d tensors (``loss``, ``grad_norm``, ``lr``,
-    ``skipped``).  ``batch`` holds tensors on the model's device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"training over a device mesh is not ported ({_MESH_ITEM})")
+    ``skipped``).  ``batch`` holds tensors on the model's device.
+
+    With ``cfg.grad_compression`` and a ``pod`` dimension in ``mesh``
+    (a ``DeviceMesh``), each rank differentiates its pod's block of the
+    global batch and the gradients are summed over the pods as int8
+    steps (``pod_manual_value_and_grad``), one scale for each leaf of
+    the JAX tree (``stacked_leaves``: a parameter stacked over a
+    segment's layers is one leaf); that path ignores
+    ``cfg.micro_batches``, as JAX's does.  Otherwise the step is the
+    micro-batch or the plain one, whatever the mesh.  A mesh whose
+    ``data`` or ``model`` dimension is larger than 1 raises: the port
+    has no sharding plans."""
+    names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
+    for axis in ("data", "model"):
+        if axis in names and mesh.size(names.index(axis)) > 1:
+            raise NotImplementedError(
+                f"a mesh with {axis} > 1 needs sharding plans, not "
+                f"ported ({_SHARDING_ITEM})")
+    vg = None
+    if cfg.grad_compression and "pod" in names:
+        vg = compression.pod_manual_value_and_grad(
+            _model_loss(model), mesh, compress=True,
+            leaves=stacked_leaves(model.cfg, trained_params(model)))
 
     def train_step(params, opt_state: AdamWState, batch):
-        if cfg.micro_batches > 1:
+        if vg is not None:
+            loss, grads = vg(params, batch)
+        elif cfg.micro_batches > 1:
             loss, grads = _accumulate_grads(model, params, batch,
                                             cfg.micro_batches)
         else:

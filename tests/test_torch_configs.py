@@ -1,6 +1,9 @@
 """The port's architecture registry against the JAX package's: every
 config equal field for field (full width and smoke), the same parameter
-counts, and the port's ``Model`` laid out at full width as
+counts, the shape suite (``SHAPES``, ``shapes()``, ``skipped_shapes()``,
+``mfu_flops`` exactly), ``ASSIGNED_ARCHS`` and ``PAPER_MODELS``, the
+JAX tree's leaves as groups of the port's tensors, and the port's
+``Model`` laid out at full width as
 ``convert.param_shapes_from_jax`` maps the JAX tree's shapes
 (``jax.eval_shape``: nothing is materialized; the port's side is built
 on the meta device) — the decoders and the encoder-only hubert.
@@ -16,20 +19,25 @@ jax = pytest.importorskip("jax")
 
 import jax.numpy as jnp  # noqa: E402
 
+import repro.configs as jconfigs  # noqa: E402
+import repro_torch.configs as configs  # noqa: E402
 from repro.configs import REGISTRY as JAX_REGISTRY  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.models import build_model as jax_build  # noqa: E402
 from repro_torch.configs import (  # noqa: E402
     REGISTRY,
+    SHAPES,
     get_config,
     get_smoke_config,
+    mfu_flops,
 )
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.models.build import Model  # noqa: E402
 from repro_torch.models.convert import (  # noqa: E402
     param_shapes_from_jax,
     params_from_jax,
+    stacked_leaves,
 )
 
 DECODERS = sorted(n for n, c in JAX_REGISTRY.items() if c.causal)
@@ -118,3 +126,71 @@ def test_hubert_full_width_layout_maps_from_jax_shapes():
     assert model.kinds == ["encoder"] * 48
     assert shapes["embed"] == shapes["head"] == (504, 1280)
     assert cfg.resolved_head_dim == 80
+
+
+def _fields(cfg) -> dict:
+    """A config's fields, its MoE and SSM sub-configs as dicts."""
+    return {f.name: (dataclasses.asdict(getattr(cfg, f.name))
+                     if dataclasses.is_dataclass(getattr(cfg, f.name))
+                     else getattr(cfg, f.name))
+            for f in dataclasses.fields(ModelConfig)}
+
+
+def test_shape_tables_and_arch_pools_equal_jax():
+    """``SHAPES`` entry for entry (fields and ``tokens``); the graded pool
+    and the paper's models by key, in JAX's order, field for field;
+    ``REGISTRY`` their union in JAX's order; all exported."""
+    assert list(SHAPES) == list(jconfigs.SHAPES)
+    for k, shape in SHAPES.items():
+        want = jconfigs.SHAPES[k]
+        assert dataclasses.asdict(shape) == dataclasses.asdict(want)
+        assert shape.tokens == want.tokens
+    for pool in ("ASSIGNED_ARCHS", "PAPER_MODELS"):
+        got, want = getattr(configs, pool), getattr(jconfigs, pool)
+        assert list(got) == list(want)
+        for name in got:
+            assert dataclasses.asdict(got[name]) == _fields(want[name])
+    assert list(REGISTRY) == list(JAX_REGISTRY) == [
+        *configs.ASSIGNED_ARCHS, *configs.PAPER_MODELS]
+    assert set(jconfigs.__all__) <= set(configs.__all__)
+
+
+@pytest.mark.parametrize("name", sorted(JAX_REGISTRY))
+def test_shape_suite_and_mfu_flops_equal_jax(name):
+    """Full width and smoke: the shapes that apply and the skipped ones
+    with their reasons, ``attention_free`` and ``sub_quadratic``; and
+    ``mfu_flops`` for every ``SHAPES`` entry, the same Python float."""
+    for cfg, jcfg in ((get_config(name), jax_config(name)),
+                      (get_smoke_config(name), jax_smoke(name))):
+        assert [dataclasses.asdict(s) for s in cfg.shapes()] == [
+            dataclasses.asdict(s) for s in jcfg.shapes()]
+        assert list(cfg.skipped_shapes()) == list(jcfg.skipped_shapes())
+        assert cfg.attention_free == jcfg.attention_free
+        assert cfg.sub_quadratic == jcfg.sub_quadratic
+        for key, shape in SHAPES.items():
+            got = mfu_flops(cfg, shape)
+            want = jconfigs.mfu_flops(jcfg, jconfigs.SHAPES[key])
+            assert type(got) is float and got == want, (key, got, want)
+
+
+@pytest.mark.parametrize("name", sorted(JAX_REGISTRY))
+def test_stacked_leaves_are_the_jax_trees_leaves(name):
+    """Each JAX leaf of the smoke config, filled with its own index,
+    lands on exactly the port tensors ``stacked_leaves`` groups
+    together (a leaf stacks a parameter over a segment's layers; the
+    pod sync gives each leaf one scale)."""
+    cfg = get_smoke_config(name)
+    tree = jax.eval_shape(jax_build(jax_smoke(name)).init, jax.random.key(0))
+    leaves, treedef = jax.tree.flatten(tree)
+    filled = jax.tree.unflatten(treedef, [
+        np.full(leaf.shape, k, np.float32) for k, leaf in enumerate(leaves)])
+    ported = params_from_jax(filled, cfg)
+    by_leaf: dict = {}
+    for n, t in ported.items():
+        assert t.min() == t.max()
+        by_leaf.setdefault(int(t.flatten()[0]), set()).add(n)
+    names = dict(Model(cfg, device="meta").named_parameters())
+    groups = stacked_leaves(cfg, names)
+    assert sorted(map(sorted, groups)) == sorted(map(sorted,
+                                                     by_leaf.values()))
+    assert len(groups) == len(leaves)
