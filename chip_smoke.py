@@ -16,7 +16,11 @@ line (``hybrid`` and ``moe`` a second one for their hand-offs,
    ``d80``: its ptxas report and its HGMMA shapes, failing if any is
    64x128x16 or if P V's widths do not sum to the 80 columns once per
    16 keys; then ``decode_ring``: ptxas's registers
-   and spills of each instance of the contiguous decode kernel's ring.
+   and spills of each instance of the contiguous decode kernel's ring;
+   then ``paged_group``: ptxas's registers and spills of each instance
+   of the paged group kernel and the ``HMMA.16816`` (mma.sync)
+   instructions ``cuobjdump -sass`` finds in each (an instance without
+   one, or a spill, fails the run).
 2. ``kernels`` — each kernel against its plain PyTorch version on the
    card (``rtol = atol =`` 2e-5 in f32 with TF32 off, 2e-2 in bf16, the
    gather exactly, SSD 2e-3 in f32 as tests/test_kernels.py holds it)
@@ -34,8 +38,13 @@ line (``hybrid`` and ``moe`` a second one for their hand-offs,
    (``legacy_ms``, in turns) at gemma3's, qwen7b's, zamba2's and a GQA-5
    group's (40 / 8 heads) bf16 shapes, with chunks of 128 and 256
    positions at gemma3's (``split_probe_ms``); the paged decode kernel
-   also at qwen32b's GQA 40 / 8 (``cases.gqa40_8_bf16``, beside SDPA
-   with ``enable_gqa``).
+   at qwen7b's MHA, zamba2's D 112, qwen32b's GQA 40 / 8 and llama70b's
+   64 / 8 (``cases.gqa40_8_bf16``, ``cases.gqa64_8_bf16``, beside SDPA
+   with ``enable_gqa``), each beside the split kernel in turns
+   (``legacy_ms``, ``legacy_event_ms``) and with the route its plan
+   takes, and once on NaN in every stale position
+   (``cases.gqa40_8_bf16_nan_tail``: finite, and equal to the plain
+   version on the same inputs with those positions zeroed).
 3. ``serve``   — qwen7b at full width in bf16 (weights drawn on the card
    from a seeded generator) serving 16 Table-1 requests through the
    paged engine; every request must finish with its ``l_out`` tokens
@@ -176,7 +185,10 @@ line (``hybrid`` and ``moe`` a second one for their hand-offs,
    heads over 8 KV heads of 128, QKV bias; 32.5 B parameters, 65 GB),
    alone on the card after every other model is freed, serving
    ``serve``'s 16 requests on the paged plane (the ``serve`` checks);
-   prints the peak memory of the weights' init and of the serving run.
+   prints the peak memory of the weights' init and of the serving run;
+   then ``qwen32b_decode``: one prefill and two decode blocks of 8 x
+   512-token prompts traced as ``--profile`` does, a decode pass's
+   device ms and the paged kernel's ms and share of it.
 
 Then it prints the card's ``nvidia-smi`` name and power limit, one JSON
 line with every kernel's numbers, and, last,
@@ -192,6 +204,14 @@ grid, 64 keys a KV tile, other ring depths, diagnostics that leave out
 the exp2 or the warpgroups' turns) and, given the kernel sources of
 another checkout, that checkout's flash attention; holds each to the
 plain version and times each beside SDPA at hubert's shape, in turns.
+
+    python3 chip_smoke.py --paged-variants
+
+instead times the paged group kernel's launch plan against other
+chunks, stages and ring depths (``PAGED_VARIANTS``, ``PAGED_RINGS``)
+beside the split kernel and SDPA at four decode shapes, in turns, and
+qwen32b's decode passes with the group kernel and with the split
+kernel in turns (``paged_e2e``: wall and device ms a pass).
 
     python3 chip_smoke.py --train-pod
 
@@ -317,10 +337,12 @@ def check(cond: bool, what: str) -> None:
 
 
 def attention_inputs(torch, dev, *, dtype, hq, hkv, poison=False,
-                     zero_row=False, b=8, d=128, ps=16, mp=128, seed=1):
+                     zero_row=False, b=8, d=128, ps=16, mp=128, seed=1,
+                     stale=1e3):
     """qwen7b's decode shape (zamba2's with d=112): B=8 slots of up to
     2048 tokens in a pool of B*MP pages of 16 tokens; kv_len drawn from
-    [1, 2048]."""
+    [1, 2048].  ``poison`` puts ``stale`` at every position no row
+    attends to (NaN included) and -1 past each row's last page."""
     rng = np.random.default_rng(seed)
     n_pages = b * mp
     kv_len = rng.integers(1, mp * ps + 1, size=b).astype(np.int32)
@@ -341,8 +363,8 @@ def attention_inputs(torch, dev, *, dtype, hq, hkv, poison=False,
                 live[table[i, t // ps], t % ps] = True
             table[i, -(-n // ps):] = -1
         live = live.to(dev)[:, None, :, None]
-        k = torch.where(live, k, 1e3)
-        v = torch.where(live, v, 1e3)
+        k = torch.where(live, k, stale)
+        v = torch.where(live, v, stale)
     return ([x.to(dtype).contiguous() for x in (q, k, v)]
             + [torch.as_tensor(table, device=dev),
                torch.as_tensor(kv_len, device=dev)])
@@ -363,6 +385,13 @@ def kernels_phase(torch, dev):
         ("gqa40_8_bf16", dict(dtype=torch.bfloat16, hq=40, hkv=8), 2e-2),
         ("gqa40_8_f32_kvlen0", dict(dtype=torch.float32, hq=40, hkv=8,
                                     zero_row=True), 2e-5),
+        ("gqa64_8_bf16", dict(dtype=torch.bfloat16, hq=64, hkv=8), 2e-2),
+        # NaN in the tail of every last page, which the group kernel
+        # copies whole, and in every page past kv_len; held to the plain
+        # version on the same inputs with those positions zeroed
+        ("gqa40_8_bf16_nan_tail", dict(dtype=torch.bfloat16, hq=40, hkv=8,
+                                       poison=True, zero_row=True,
+                                       stale=float("nan")), 2e-2),
         ("zamba2_d112_bf16", dict(dtype=torch.bfloat16, hq=32, hkv=32,
                                   d=112), 2e-2),
         ("zamba2_d112_f32_poisoned", dict(dtype=torch.float32, hq=32,
@@ -371,15 +400,19 @@ def kernels_phase(torch, dev):
     ):
         args = attention_inputs(torch, dev, **kw)
         got = decode_attention.paged_decode_attention(*args)
-        want = ref.paged_decode_attention_ref(*args)
+        clean = [torch.nan_to_num(x, nan=0.0) if x.is_floating_point()
+                 else x for x in args]
+        want = ref.paged_decode_attention_ref(*clean)
         cases[name] = compare(torch, got, want, tol,
                               f"paged_decode_attention {name}")
+        cases[name]["route"] = paged_route(decode_attention, *args)
         if kw.get("zero_row"):
             check(bool((got[0] == 0).all()), f"{name}: kv_len 0 row != 0")
 
     def paged_timing(d, hq=32, hkv=32):
         """Timing at the main path's decode shape and dtype (qwen32b's
-        GQA 40 / 8 with ``hq``, ``hkv``)."""
+        GQA 40 / 8 with ``hq``, ``hkv``), beside the split kernel in
+        turns on the same inputs (``legacy_ms``, ``legacy_event_ms``)."""
         q, k, v, table, kv_len = attention_inputs(
             torch, dev, dtype=torch.bfloat16, hq=hq, hkv=hkv, d=d)
         b, hq, _ = q.shape
@@ -393,16 +426,28 @@ def kernels_phase(torch, dev):
         vc = ref.paged_gather(v, table)
         mask = (torch.arange(kc.shape[2], device=dev)[None, :]
                 < kv_len[:, None].long())[:, None, None, :]
+
+        def kernel(**kw):
+            return lambda: decode_attention.paged_decode_attention(
+                q, k, v, table, kv_len, **kw)
+
+        want = ref.paged_decode_attention_ref(q, k, v, table, kv_len)
+        legacy = compare(torch, kernel(legacy=True)(), want, 2e-2,
+                         f"paged_decode_attention split D {d} {hq}/{hkv}")
+        ms, legacy_ms = ab_ms(torch, kernel(), kernel(legacy=True))
+        event_ms, legacy_event_ms = ab_ms(
+            torch, kernel(), kernel(legacy=True),
+            timer=lambda fn: cuda_ms(torch, fn, 50))
         return {
-            **timings(
-                torch,
-                lambda: decode_attention.paged_decode_attention(
-                    q, k, v, table, kv_len),
-                lambda: ref.paged_decode_attention_ref(q, k, v, table,
-                                                       kv_len),
-                lambda: F.scaled_dot_product_attention(
-                    q[:, :, None, :], kc, vc, attn_mask=mask,
-                    enable_gqa=hq != hkv), 50),
+            "ms": ms, "legacy_ms": legacy_ms,
+            "legacy_max_abs_err": legacy["max_abs_err"],
+            "plain_ms": device_ms(torch, lambda: ref.paged_decode_attention_ref(
+                q, k, v, table, kv_len)),
+            "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], kc, vc, attn_mask=mask,
+                enable_gqa=hq != hkv)),
+            "event_ms": event_ms, "legacy_event_ms": legacy_event_ms,
+            "route": paged_route(decode_attention, q, k, v, table, kv_len),
             **bound_row(att_bytes, att_flops, BF16_FLOPS_PER_S),
             "shape": {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "ps": ps,
                       "MP": table.shape[1], "sum_kv_len": int(lens.sum()),
@@ -413,6 +458,7 @@ def kernels_phase(torch, dev):
            "max_abs_err": cases["mha_bf16"]["max_abs_err"]}
     cases["zamba2_d112_bf16"].update(paged_timing(112))
     cases["gqa40_8_bf16"].update(paged_timing(128, hq=40, hkv=8))
+    cases["gqa64_8_bf16"].update(paged_timing(128, hq=64, hkv=8))
     torch.cuda.empty_cache()
 
     # page gather: exactness with -1 ids, then time at the pd export shape
@@ -460,6 +506,54 @@ def kernels_phase(torch, dev):
             "page_gather": gat,
             "flash_attention": flash, "decode_attention": dec, "ssd": ssd,
             "rmsnorm": norm}
+
+
+def paged_route(decode_attention, q, k, v, table, kv_len) -> dict:
+    """The route and launch plan ``paged_plan`` gives these inputs."""
+    plan = decode_attention.paged_plan(
+        q.shape[0], q.shape[1], k.shape[1], table.shape[1], k.shape[2],
+        q.shape[2], q.dtype)
+    return {"kernel": plan.route, "n_split": plan.n_split,
+            "chunk_pages": plan.chunk_pages, "stage_pages": plan.stage_pages}
+
+
+PAGED_GROUP_KERNEL = "paged_group_kernel"   # the group kernel's function
+
+
+def paged_group_report(_build) -> dict:
+    """ptxas's registers and spills of each instance of the paged group
+    kernel (bf16 at head dim D) and its ``HMMA.16816`` (mma.sync
+    m16n8k16) instructions per function in ``cuobjdump -sass``.  Fails
+    if an instance holds no HMMA.16816 or ptxas reports a spill."""
+    sass = subprocess.run(
+        [_build.cuda_tool("cuobjdump"), "-sass",
+         str(_build.library_path("paged_decode_attention"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    hmma: dict[str, int] = {}
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            if PAGED_GROUP_KERNEL in fn:
+                hmma.setdefault(fn, 0)
+        elif fn and PAGED_GROUP_KERNEL in fn and re.search(r"\bHMMA\.16816",
+                                                          line):
+            hmma[fn] += 1
+    check(bool(hmma) and all(hmma.values()),
+          f"a {PAGED_GROUP_KERNEL} function holds no HMMA.16816: {hmma}")
+
+    def instance(fn):
+        m = re.search(PAGED_GROUP_KERNEL + r"ILi(\d+)E", fn)
+        return m and f"bf16 D{m.group(1)}"
+
+    ptxas, notes = ptxas_report(
+        _build.build_log.get("paged_decode_attention", ""), instance)
+    spills = {k: v for k, v in ptxas.items()
+              if v.get("spill_stores") or v.get("spill_loads")}
+    check(not spills, f"{PAGED_GROUP_KERNEL} spills: {spills}")
+    return {"ptxas": ptxas or "built earlier: no ptxas report",
+            "ptxas_notes": notes, "hmma_16816_by_function": hmma}
 
 
 def ptxas_report(log: str, wanted) -> tuple[dict, list]:
@@ -873,6 +967,185 @@ def flash80_variants(torch, dev, other_csrc: Path | None = None) -> dict:
                                  for k, v in spec.items()}
                          for label, spec in variants.items()},
             "max_abs_err": errs, "times": times, "report": report}
+
+
+# --paged-variants: ring depths other than the source's 3 (the stage
+# capped at 64 tokens where 4 stages of 128 would not fit), as edits of
+# paged_decode_attention.cu; and (ring, chunk pages, stage pages) at ps 16
+PAGED_RINGS = {
+    2: [("constexpr int kStages = 3;", "constexpr int kStages = 2;")],
+    4: [("constexpr int kStages = 3;", "constexpr int kStages = 4;"),
+        ("constexpr int kMaxStageTokens = 128;",
+         "constexpr int kMaxStageTokens = 64;")],
+}
+PAGED_VARIANTS = ((3, 16, 4), (3, 32, 2), (3, 24, 4), (3, 48, 4), (3, 64, 4),
+                  (2, 32, 4), (4, 32, 2), (4, 16, 2))
+
+
+def paged_variants(torch, dev) -> dict:
+    """``--paged-variants``: the paged group kernel's launch plan (as
+    the model runs it) against other chunks and stages of the source's
+    3-stage ring (the C entry point called with them) and against rings
+    of 2 and 4 stages (``PAGED_RINGS``, built with ``nvcc`` into
+    ``build/paged_variants/``), each held to the plain version (2e-2),
+    then timed at qwen32b's GQA 40 / 8, llama70b's 64 / 8, qwen7b's MHA
+    and zamba2's D 112 beside the split kernel and SDPA, in turns over 4
+    rounds (the order reversed every other round); the merge kernel's
+    share of the plan's time.  Then ``paged_e2e``."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build, decode_attention, ref
+
+    out_dir = ROOT / "build" / "paged_variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for ring, edits in PAGED_RINGS.items():
+        text = (_build.CSRC / "paged_decode_attention.cu").read_text()
+        for old, new in edits:
+            check(old in text, f"ring {ring}: {old!r} not in the source")
+            text = text.replace(old, new)
+        (out_dir / f"r{ring}.cu").write_text(text)
+        procs[ring] = subprocess.Popen(
+            [_build.cuda_tool("nvcc"), *_build.NVCC_FLAGS, "-I",
+             str(_build.CSRC), "-o", str(out_dir / f"r{ring}.so"),
+             str(out_dir / f"r{ring}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    name, argtypes = _build.SIGNATURES["paged_decode_attention"]
+    libs = {3: _build.library("paged_decode_attention")}
+    for ring, proc in procs.items():
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"ring {ring} failed to build:\n{log}")
+        libs[ring] = ctypes.CDLL(str(out_dir / f"r{ring}.so"))
+        getattr(libs[ring], name).argtypes = argtypes
+        getattr(libs[ring], name).restype = ctypes.c_int
+
+    def group(ring, chunk_pages, stage_pages, q, k, v, table, kv_len):
+        b, hq, d = q.shape
+        n_pages, hkv, ps, _ = k.shape
+        mp = table.shape[1]
+        n_split = -(-mp // chunk_pages)
+        ws = torch.empty((b, hq, n_split, d + 2), dtype=torch.float32,
+                         device=dev)
+        out = torch.empty_like(q)
+        err = getattr(libs[ring], name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), table.data_ptr(),
+            kv_len.data_ptr(), ws.data_ptr(), out.data_ptr(), 1, b, hq, hkv,
+            d, n_pages, ps, mp, n_split, chunk_pages, stage_pages,
+            torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"ring {ring} c{chunk_pages} s{stage_pages}: "
+                        f"cudaError_t {err}")
+        return out
+
+    shapes = {}
+    for label, hq, hkv, d in (("gqa40_8", 40, 8, 128), ("gqa64_8", 64, 8, 128),
+                              ("mha", 32, 32, 128), ("d112", 32, 32, 112)):
+        q, k, v, table, kv_len = attention_inputs(
+            torch, dev, dtype=torch.bfloat16, hq=hq, hkv=hkv, d=d)
+        want = ref.paged_decode_attention_ref(q, k, v, table, kv_len)
+        kc, vc = ref.paged_gather(k, table), ref.paged_gather(v, table)
+        mask = (torch.arange(kc.shape[2], device=dev)[None, :]
+                < kv_len[:, None].long())[:, None, None, :]
+        fns = {"plan": lambda: decode_attention.paged_decode_attention(
+            q, k, v, table, kv_len)}
+        for ring, c, st in PAGED_VARIANTS:
+            fns[f"r{ring}_c{c}_s{st}"] = (
+                lambda ring=ring, c=c, st=st:
+                group(ring, c, st, q, k, v, table, kv_len))
+        for lbl, fn in fns.items():
+            compare(torch, fn(), want, 2e-2, f"paged {label} {lbl}")
+        fns["split"] = lambda: decode_attention.paged_decode_attention(
+            q, k, v, table, kv_len, legacy=True)
+        fns["sdpa"] = lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kc, vc, attn_mask=mask, enable_gqa=hq != hkv)
+        times: dict[str, list] = {lbl: [] for lbl in fns}
+        for rnd in range(4):
+            for lbl in (list(fns) if rnd % 2 == 0 else list(fns)[::-1]):
+                times[lbl].append(device_ms(torch, fns[lbl]))
+        lens = kv_len.cpu().numpy().astype(np.int64)
+        shapes[label] = {
+            "ms": {lbl: float(np.mean(t)) for lbl, t in times.items()},
+            "merge_ms": device_ms(torch, fns["plan"], only="merge")[1],
+            "route": paged_route(decode_attention, q, k, v, table, kv_len),
+            **bound_row(int(lens.sum()) * hkv * d * 2 * q.element_size(), 0,
+                        BF16_FLOPS_PER_S)}
+        del kc, vc
+        torch.cuda.empty_cache()
+    return {"phase": "paged_variants", "shapes": shapes}
+
+
+def paged_e2e(torch, dev) -> dict:
+    """qwen32b at full width serving 8 x 512-token prompts: decode blocks
+    of 8 passes with the paged group kernel and with the split kernel
+    (``legacy=True`` put under the model's call), in turns group, split,
+    split, group; each turn one block on the host's clock (wall ms a
+    pass, synchronized) and one traced (device busy ms a pass, the
+    decode-attention kernels' ms a pass, idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.request import Request
+    from repro_torch.kernels import decode_attention, ops
+    from repro_torch.models.build import Model
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    class Split:
+        """The decode-attention module with the paged call on the split
+        kernel."""
+        def __getattr__(self, attr):
+            return getattr(decode_attention, attr)
+
+        @staticmethod
+        def paged_decode_attention(*args):
+            return decode_attention.paged_decode_attention(*args, legacy=True)
+
+    model = Model(get_config("qwen32b"), dtype=torch.bfloat16, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(SEED))
+    engine = InferenceEngine(model, EngineConfig(**ENGINE))
+    rng = np.random.default_rng(SEED + 4)
+    for i in range(ENGINE["n_slots"]):
+        prompt = rng.integers(0, model.cfg.vocab_size, 512).astype(np.int32)
+        engine.submit(Request.from_prompt(i, prompt, 80))
+    while engine.queue or engine.prefilling:
+        engine.step()
+    engine.step()                 # first full-batch decode block
+    turns: dict[str, dict] = {"group": {}, "split": {}}
+    for mode in ("group", "split", "split", "group"):
+        ops._decode = Split() if mode == "split" else decode_attention
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev = engine.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(ev["kind"] == "decode", f"e2e: a {ev['kind']} step")
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                ev2 = engine.step()
+                torch.cuda.synchronize()
+                wall2 = time.perf_counter() - t1
+        finally:
+            ops._decode = decode_attention
+        path = ROOT / "build" / "profile" / f"trace_e2e_{mode}.json.gz"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(str(path))
+        tr = trace_summary(path, wall2)
+        for key, val in (
+                ("wall_ms_per_pass", 1e3 * wall / ev["k"]),
+                ("device_ms_per_pass", tr["busy_ms"] / ev2["k"]),
+                ("paged_ms_per_pass",
+                 tr["decode_attention_ms"]["ms"] / ev2["k"]),
+                ("idle_share", tr["idle_share"])):
+            turns[mode].setdefault(key, []).append(val)
+    del engine, model
+    torch.cuda.empty_cache()
+    return {"phase": "paged_e2e", "model": "qwen32b",
+            "requests": f"{ENGINE['n_slots']} x (512 in, 80 out)",
+            **{mode: {k: float(np.mean(v)) for k, v in t.items()}
+               for mode, t in turns.items()},
+            "turns": turns}
 
 
 def ab_ms(torch, a, b, timer=None) -> tuple[float, float]:
@@ -2898,10 +3171,18 @@ def feature_parity_phase(torch, dev, cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 
+# the decode-attention kernels' functions: paged (group, split), the
+# contiguous ring and split, and the merge they share
+DECODE_ATTENTION_KERNELS = (PAGED_GROUP_KERNEL, "paged_decode_attention_split",
+                            "decode_ring_kernel", "decode_attention_split",
+                            "decode_merge_kernel")
+
+
 def trace_summary(path: Path, wall_s: float) -> dict:
     """Device busy time (union of kernel intervals), kernel time by name,
-    launch count and the CUDA runtime's synchronize and memcpy calls by
-    name from a chrome trace of ``torch.profiler``."""
+    the decode-attention kernels' time and count, launch count and the
+    CUDA runtime's synchronize and memcpy calls by name from a chrome
+    trace of ``torch.profiler``."""
     with gzip.open(path, "rt") as f:
         events = json.load(f)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
@@ -2917,7 +3198,10 @@ def trace_summary(path: Path, wall_s: float) -> dict:
         row[0] += e["dur"] / 1e3
         row[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    attn = [e["dur"] / 1e3 for e in kernels
+            if any(n in e["name"] for n in DECODE_ATTENTION_KERNELS)]
     return {"wall_ms": 1e3 * wall_s, "busy_ms": busy / 1e3,
+            "decode_attention_ms": {"ms": sum(attn), "n": len(attn)},
             "idle_share": 1.0 - busy / 1e3 / (1e3 * wall_s),
             "n_kernels": len(kernels),
             "n_cpu_ops": sum(e.get("cat") == "cpu_op" for e in events),
@@ -2967,6 +3251,7 @@ def profile_phase(torch, dev, model, engine_kw: dict, l_in: int,
     emit(result)
     del engine
     torch.cuda.empty_cache()
+    return result
 
 
 # ---------------------------------------------------------------------------
@@ -3007,6 +3292,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     emit({"phase": "tensor_cores", **tensor_core_report(_build)})
     emit({"phase": "decode_ring", **decode_ring_report(_build)})
+    emit({"phase": "paged_group", **paged_group_report(_build)})
 
     def load(name: str, dtype=torch.bfloat16):
         t0 = time.perf_counter()
@@ -3014,6 +3300,11 @@ def main() -> int:
         model.init(torch.Generator(device=dev).manual_seed(SEED))
         torch.cuda.synchronize()
         return model, time.perf_counter() - t0
+
+    if "--paged-variants" in sys.argv[1:]:
+        emit(paged_variants(torch, dev))
+        emit(paged_e2e(torch, dev))
+        return 0
 
     if "--flash80-variants" in sys.argv[1:]:
         rest = sys.argv[sys.argv.index("--flash80-variants") + 1:]
@@ -3082,6 +3373,19 @@ def main() -> int:
     init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     qwen32b = serve_phase(torch, dev, model, init_s, "qwen32b",
                           init_peak_mem_gb=init_peak_gb)
+    # one prefill and two decode blocks of 8 x 512-token prompts traced:
+    # a decode pass's device time and the paged kernel's share of it
+    decode = profile_phase(torch, dev, model, ENGINE, 512,
+                           ROOT / "build" / "profile")["decode"]
+    passes = sum(k for kind, k, _ in decode["steps"] if kind == "decode")
+    check(passes > 0, "qwen32b: the traced window holds no decode pass")
+    emit({"phase": "qwen32b_decode", "passes": passes,
+          "device_ms_per_pass": decode["busy_ms"] / passes,
+          "paged_ms_per_pass": decode["decode_attention_ms"]["ms"] / passes,
+          "paged_launches_per_pass": decode["decode_attention_ms"]["n"]
+          / passes,
+          "paged_share": decode["decode_attention_ms"]["ms"]
+          / decode["busy_ms"], "idle_share": decode["idle_share"]})
     del model
     torch.cuda.empty_cache()
 
@@ -3122,14 +3426,19 @@ def main() -> int:
                for k in ("ms", "fma_ms", "plain_ms", "library_ms",
                          "bound_ms", "bound_by", "max_abs_err", "shape")}
         for name in ("hubert_d80_bf16", "hubert_d80_ragged1000_bf16")}
-    # qwen32b's GQA 40 / 8 beside the MHA shape the paged row reports
+    # qwen32b's GQA 40 / 8, llama70b's 64 / 8 and zamba2's D 112 beside
+    # the MHA shape the paged row reports, each with the split kernel's
+    # time in turns
     paged_cases = rows["paged_decode_attention"]["cases"]
     paged_row = next(k for k in kernels
                      if k["name"] == "paged_decode_attention")
-    paged_row["gqa40_8"] = {
-        k: paged_cases["gqa40_8_bf16"][k]
-        for k in ("ms", "plain_ms", "library_ms", "event_ms", "bound_ms",
-                  "bound_by", "max_abs_err", "shape")}
+    paged_keys = ("ms", "legacy_ms", "plain_ms", "library_ms", "event_ms",
+                  "legacy_event_ms", "bound_ms", "bound_by", "max_abs_err",
+                  "route", "shape")
+    paged_row["legacy_ms"] = rows["paged_decode_attention"]["legacy_ms"]
+    for key, case in (("gqa40_8", "gqa40_8_bf16"), ("gqa64_8", "gqa64_8_bf16"),
+                      ("zamba2_d112", "zamba2_d112_bf16")):
+        paged_row[key] = {k: paged_cases[case][k] for k in paged_keys}
     # rmsnorm has no call site in the model (nor in the JAX package's):
     # its 0 launches on the main paths are expected; every other kernel
     # must have run there

@@ -46,7 +46,7 @@ _INT = ctypes.c_int
 SIGNATURES = {
     "paged_decode_attention": (
         "paged_decode_attention_launch",
-        [_VOID_P] * 7 + [_INT] * 9 + [_VOID_P],
+        [_VOID_P] * 7 + [_INT] * 11 + [_VOID_P],
     ),
     "page_gather": (
         "page_gather_launch",
@@ -79,6 +79,9 @@ ENTRIES = {
     # the split decode kernel, one block per query head (a yardstick)
     "decode_attention_split_launch": ("decode_attention",
                                       [_VOID_P] * 6 + [_INT] * 7 + [_VOID_P]),
+    # the paged split kernel (f32, the smoke widths; a yardstick in bf16)
+    "paged_decode_attention_split_launch": (
+        "paged_decode_attention", [_VOID_P] * 7 + [_INT] * 9 + [_VOID_P]),
 }
 # dtype code the entry points take
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}

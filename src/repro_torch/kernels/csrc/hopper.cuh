@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks written as inline PTX, shared by the
-// tensor-core kernels (flash_attention.cu, ssd.cu): mbarriers, TMA loads
-// completing on them, wgmma descriptors and instructions, and the
-// host-side encoding of TMA tensor maps.
+// tensor-core kernels (flash_attention.cu, ssd.cu,
+// paged_decode_attention.cu): mbarriers, TMA loads completing on them,
+// wgmma descriptors and instructions, the warp-level mma.sync and
+// ldmatrix, and the host-side encoding of TMA tensor maps.
 //
 // Shared-memory operand layout.  Every wgmma operand here is bf16 in the
 // 128-byte swizzle (what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B): a
@@ -136,6 +137,50 @@ DEV void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---- warp-level products (mma.sync) and ldmatrix ----------------------------
+//
+// m16n8k16 with bf16 operands and f32 accumulators, one warp.  For thread
+// t, g = t / 4 and c = 2 (t % 4):
+//   A (16 x 16, row-major): a0 = (g, c..c+1), a1 = (g + 8, c..c+1),
+//     a2 = (g, c+8..c+9), a3 = (g + 8, c+8..c+9), two bf16 a register;
+//   B (16 x 8, column-major: k contiguous): b0 = (k c..c+1, n g),
+//     b1 = (k c+8..c+9, n g);
+//   D (16 x 8, f32): d0, d1 = (g, c..c+1), d2, d3 = (g + 8, c..c+1).
+// ldmatrix .x4 loads four 8 x 8 bf16 matrices whose 16-byte rows are
+// addressed by lanes 8i..8i+7 for matrix i; thread t gets element
+// pair (t / 4, 2 (t % 4)..+1) of each, or with .trans that of the
+// transposed matrix.  So a row-major tile of tokens x columns gives B
+// fragments of K^T (k = column) directly, and of V (k = token) with .trans.
+
+// d (16 x 8, f32) += a (16 x 16) b (16 x 8), bf16 operands
+DEV void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory (`addr`: this lane's row).
+DEV void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// The same, each matrix transposed.
+DEV void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
       : "memory");
 }
 

@@ -9,13 +9,17 @@ memory bandwidth: they must read ``sum_b kv_len_b * Hkv * D * 2 *
 itemsize`` bytes of K/V, so their least time on an H100 is those bytes
 over 3.35 TB/s.  Each cuts every row's cache into chunks, and a second
 launch merges the chunks (``csrc/attn_common.cuh``).  The paged kernel
-runs one block per (chunk of ``SPLIT_TOKENS`` positions, query head,
-row), K/V through registers.  The contiguous kernel runs one block per
-(chunk of ``CONTIGUOUS_SPLIT_TOKENS``, KV head, row) that computes all
-query heads of the KV head's group, with K/V streamed through a ring of
-shared-memory stages by bulk copy; :func:`decode_plan` sizes its grid
-and stages from shapes alone.  The source files say how their designs
-answer the bound.  Their plain PyTorch versions are
+runs one block per (chunk of whole pages, KV head, row) that computes
+the KV head's whole query group on the tensor cores (``mma.sync``),
+pages streamed through a ring of shared-memory stages by TMA;
+:func:`paged_plan` picks that route or the split kernel (one block per
+query head, K/V through registers: f32, the smoke widths) and sizes the
+grid from shapes alone.  The contiguous kernel runs one block per
+(chunk of ``CONTIGUOUS_SPLIT_TOKENS``, KV head, row) that computes
+query heads of the KV head's group in pairs, with K/V streamed through
+a ring of shared-memory stages by bulk copy; :func:`decode_plan` sizes
+its grid and stages from shapes alone.  The source files say how their
+designs answer the bound.  Their plain PyTorch versions are
 ``decode_attention_ref`` and ``paged_decode_attention_ref`` in
 :mod:`repro_torch.kernels.ref`; :mod:`repro_torch.kernels.ops` picks
 between kernel and plain version by device.
@@ -23,6 +27,7 @@ between kernel and plain version by device.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -32,6 +37,17 @@ from repro_torch.kernels import _build
 HEAD_DIMS = (16, 64, 112, 128, 256)  # the DA_CASEs of decode_attention.cu
 PAGED_HEAD_DIMS = (8, 16, 64, 112, 128)  # the PDA_CASEs of paged_decode_attention.cu
 SPLIT_TOKENS = 256  # cache positions per block of the paged split-KV grid
+# the paged group kernel's (namespace group of paged_decode_attention.cu):
+# its head dims (PG_CASEs), the largest query group (kMaxG: mma's 16 M
+# rows), the positions per chunk and tokens per ring stage it aims at
+# (the fastest of the variants timed on the card, PERF.md), and the most
+# tokens a stage and pages a chunk take (kMaxStageTokens, kMaxChunkPages)
+GROUP_HEAD_DIMS = (64, 112, 128)
+MAX_QUERY_GROUP = 16
+PAGED_SPLIT_TOKENS = 512
+PAGED_STAGE_TOKENS = 64
+MAX_STAGE_TOKENS = 128
+MAX_CHUNK_PAGES = 64
 # the contiguous kernel's: positions per block of its grid, the most
 # query heads one block computes (kMaxG of decode_attention.cu), and the
 # tokens of a full stage of its ring (kStageTokens) with the most K bytes
@@ -69,6 +85,50 @@ def decode_plan(b: int, hq: int, hkv: int, s: int, d: int, itemsize: int,
                       2 * stage * d * itemsize, (b, hq, n_split, d + 2))
 
 
+class PagedPlan(NamedTuple):
+    """The paged kernel's launch, from shapes and dtype alone."""
+    route: str        # "group" (tensor cores, a block per KV head) or "split"
+    n_split: int      # chunks per row: the grid's x
+    chunk_pages: int  # pages of a chunk (group route; 0 on the split route)
+    stage_pages: int  # pages of a ring stage (group route; 0 on the split)
+    grid: tuple       # (n_split, Hkv or Hq, B)
+    workspace: tuple  # the f32 (acc, m, l) rows the merge reads
+
+
+def paged_plan(b: int, hq: int, hkv: int, max_pages: int, ps: int, d: int,
+               dtype, *, legacy: bool = False) -> PagedPlan:
+    """Route, grid, stages and workspace of the paged kernel for q
+    (b, hq, d) over pages of ``ps`` tokens and a (b, max_pages) table.
+
+    The group kernel takes bf16 at a head dim of ``GROUP_HEAD_DIMS``, a
+    query group of at most ``MAX_QUERY_GROUP`` heads (MHA too), and a
+    page size that is a multiple of 8 (each page's TMA box starts on a
+    1024-byte atom of the 128-byte swizzle) whose stage fits: a stage is
+    the fewest whole pages that make a multiple of 16 tokens (mma's
+    slices), times as many as reach ``PAGED_STAGE_TOKENS``, at most
+    ``MAX_STAGE_TOKENS``; a chunk is whole stages near
+    ``PAGED_SPLIT_TOKENS`` positions.  Everything else, and ``legacy``,
+    takes the split kernel: chunks of ``SPLIT_TOKENS`` positions, a
+    block per query head."""
+    group = hq // hkv
+    unit = 16 // math.gcd(ps, 16)  # pages of the shortest whole stage
+    takes = (not legacy and dtype == torch.bfloat16
+             and d in GROUP_HEAD_DIMS
+             and group <= MAX_QUERY_GROUP
+             and ps % 8 == 0 and unit * ps <= MAX_STAGE_TOKENS)
+    if not takes:
+        n_split = max(1, -(-(max_pages * ps) // SPLIT_TOKENS))
+        return PagedPlan("split", n_split, 0, 0, (n_split, hq, b),
+                         (b, hq, n_split, d + 2))
+    stage = unit * max(1, PAGED_STAGE_TOKENS // (unit * ps))
+    stages = max(1, min(round(PAGED_SPLIT_TOKENS / (stage * ps)),
+                        MAX_CHUNK_PAGES // stage))
+    chunk = stage * stages
+    n_split = max(1, -(-max_pages // chunk))
+    return PagedPlan("group", n_split, chunk, stage, (n_split, hkv, b),
+                     (b, hq, n_split, d + 2))
+
+
 def _check_gqa(b, hq, hkv, d, head_dims, kv_len):
     if d not in head_dims:
         raise ValueError(f"head_dim {d} not in {head_dims}")
@@ -79,8 +139,9 @@ def _check_gqa(b, hq, hkv, d, head_dims, kv_len):
 
 
 def _split_workspace(q, positions: int):
-    """The paged split-KV grid's chunk count for ``positions`` cache
-    positions per row, and its f32 workspace: one (acc, m, l) row per
+    """The split kernel's chunk count for ``positions`` cache positions
+    per row (the contiguous kernel's yardstick; the paged one's is in
+    :func:`paged_plan`), and its f32 workspace: one (acc, m, l) row per
     (b, head, chunk), written by the kernel before it is read."""
     b, hq, d = q.shape
     n_split = max(1, -(-positions // SPLIT_TOKENS))
@@ -135,13 +196,15 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, legacy: bool = False,
     return out
 
 
-def paged_decode_attention(q, k_pages, v_pages, page_table,
-                           kv_len) -> torch.Tensor:
+def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len, *,
+                           legacy: bool = False) -> torch.Tensor:
     """q: (B, Hq, D); k/v_pages: (NP, Hkv, ps, D) with Hq % Hkv == 0;
     page_table: (B, MP) int32 (-1 = unallocated, clamped); kv_len: (B,)
-    int32.  Returns (B, Hq, D) in q's dtype.  Launches the CUDA kernel
-    on the current stream; raises on anything the kernel does not take
-    and on a failed launch."""
+    int32.  Returns (B, Hq, D) in q's dtype.  Launches the kernel that
+    :func:`paged_plan` routes to on the current stream; raises on
+    anything the kernels do not take and on a failed launch.
+    ``legacy`` runs the split kernel at any shape: the yardstick for
+    timing; the model never asks for it."""
     _build.check_operands({"q": q, "k_pages": k_pages, "v_pages": v_pages},
                           {"page_table": page_table, "kv_len": kv_len})
     if q.dim() != 3 or k_pages.dim() != 4:
@@ -160,13 +223,17 @@ def paged_decode_attention(q, k_pages, v_pages, page_table,
     if b == 0 or hq == 0:
         return out
     max_pages = page_table.shape[1]
-    n_split, ws = _split_workspace(q, max_pages * ps)
+    plan = paged_plan(b, hq, hkv, max_pages, ps, d, q.dtype, legacy=legacy)
+    ws = torch.empty(plan.workspace, dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _build.launch(
-        "paged_decode_attention",
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), kv_len.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), _build.DTYPE_CODE[q.dtype], b, hq, hkv, d, n_pages,
-        ps, max_pages, n_split, stream,
-    )
+    args = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            page_table.data_ptr(), kv_len.data_ptr(), ws.data_ptr(),
+            out.data_ptr(), _build.DTYPE_CODE[q.dtype], b, hq, hkv, d,
+            n_pages, ps, max_pages, plan.n_split)
+    if plan.route == "split":
+        _build.launch("paged_decode_attention", *args, stream,
+                      entry="paged_decode_attention_split_launch")
+    else:
+        _build.launch("paged_decode_attention", *args, plan.chunk_pages,
+                      plan.stage_pages, stream)
     return out

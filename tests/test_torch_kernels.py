@@ -483,6 +483,68 @@ def test_launch_counts_only_a_launch_the_entry_point_reports(monkeypatch,
     ops.reset_launch_counts()
 
 
+@pytest.mark.parametrize("route,dtype,hq,hkv,d,ps,legacy", [
+    ("group", torch.bfloat16, 40, 8, 128, 16, False),   # qwen32b, GQA 5
+    ("group", torch.bfloat16, 32, 32, 128, 16, False),  # qwen7b, MHA
+    ("group", torch.bfloat16, 8, 4, 112, 32, False),    # D 112, pages of 32
+    ("split", torch.bfloat16, 40, 8, 128, 16, True),    # the yardstick
+    ("split", torch.float32, 40, 8, 128, 16, False),    # f32 parity
+    ("split", torch.bfloat16, 4, 2, 16, 16, False),     # a smoke width
+    ("split", torch.bfloat16, 8, 4, 128, 4, False),     # pages of 4
+])
+def test_paged_wrapper_passes_each_route_its_arguments(monkeypatch, route,
+                                                       dtype, hq, hkv, d,
+                                                       ps, legacy):
+    """The paged wrapper sends each call to the entry point its plan
+    routes to, with the plan's grid arguments, and counts one launch a
+    call on either route (CPU tensors; the library and the stream are
+    fakes, so nothing is launched)."""
+    calls = []
+
+    class FakeLib:
+        def paged_decode_attention_launch(self, *args):
+            calls.append(("group", args))
+            return 0
+
+        def paged_decode_attention_split_launch(self, *args):
+            calls.append(("split", args))
+            return 0
+
+    monkeypatch.setattr(_build, "library", lambda name: FakeLib())
+    monkeypatch.setattr(_build, "check_operands", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 77}))
+    b, n_pages, mp = 3, 40, 12
+    q = torch.zeros(b, hq, d, dtype=dtype)
+    pages = torch.zeros(n_pages, hkv, ps, d, dtype=dtype)
+    table = torch.zeros(b, mp, dtype=torch.int32)
+    kv_len = torch.ones(b, dtype=torch.int32)
+    ops.reset_launch_counts()
+    out = decode_attention.paged_decode_attention(q, pages, pages, table,
+                                                  kv_len, legacy=legacy)
+    assert out.shape == q.shape and out.dtype == dtype
+    plan = decode_attention.paged_plan(b, hq, hkv, mp, ps, d, dtype,
+                                       legacy=legacy)
+    assert plan.route == route and [c[0] for c in calls] == [route]
+    args = calls[0][1]
+    assert args[:7] == (q.data_ptr(), pages.data_ptr(), pages.data_ptr(),
+                        table.data_ptr(), kv_len.data_ptr(), args[5],
+                        out.data_ptr())
+    head = (_build.DTYPE_CODE[dtype], b, hq, hkv, d, n_pages, ps, mp,
+            plan.n_split)
+    tail = ((plan.chunk_pages, plan.stage_pages, 77) if route == "group"
+            else (77,))
+    assert args[7:] == head + tail
+    n_int = len(head) + (2 if route == "group" else 0)
+    entry = ("paged_decode_attention_launch" if route == "group"
+             else "paged_decode_attention_split_launch")
+    owner = _build.SIGNATURES["paged_decode_attention"]
+    argtypes = owner[1] if owner[0] == entry else _build.ENTRIES[entry][1]
+    assert len(argtypes) == 7 + n_int + 1   # what ctypes is told
+    assert ops.launch_counts()["paged_decode_attention"] == 1
+    ops.reset_launch_counts()
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """A wrapper launches its kernel or raises — it never computes on
     the CPU in the kernel's place."""
@@ -540,6 +602,63 @@ def test_decode_plan(shape, itemsize, want):
     assert long.n_split == -(-s // 256)
 
 
+@pytest.mark.parametrize("hq,hkv,d,ps,dtype,route", [
+    (40, 8, 128, 16, torch.bfloat16, "group"),   # qwen32b, qwen2.5-14b
+    (48, 8, 128, 16, torch.bfloat16, "group"),   # internlm2
+    (64, 8, 128, 16, torch.bfloat16, "group"),   # llama70b, chameleon
+    (96, 8, 128, 16, torch.bfloat16, "group"),   # command-r: a group of 12
+    (32, 8, 128, 16, torch.bfloat16, "group"),   # phi3.5-moe
+    (32, 32, 128, 16, torch.bfloat16, "group"),  # qwen7b, MHA
+    (32, 32, 112, 16, torch.bfloat16, "group"),  # zamba2, D 112
+    (40, 8, 128, 32, torch.bfloat16, "group"),   # hybrid_pd's pages of 32
+    (8, 4, 64, 48, torch.bfloat16, "group"),     # a page of 48: 3 slices
+    (8, 4, 64, 80, torch.bfloat16, "group"),     # a page of 80: 5 slices
+    (40, 8, 128, 16, torch.float32, "split"),    # f32 parity
+    (32, 32, 112, 16, torch.float32, "split"),
+    (4, 2, 8, 16, torch.bfloat16, "split"),      # the smoke widths
+    (4, 2, 16, 16, torch.bfloat16, "split"),
+    (8, 4, 128, 4, torch.bfloat16, "split"),     # pages of 4: off the atom
+    (34, 2, 128, 16, torch.bfloat16, "split"),   # a group of 17 > mma's M
+])
+@pytest.mark.parametrize("mp", [128, 80, 5])
+def test_paged_plan(hq, hkv, d, ps, dtype, route, mp):
+    """The paged kernel's launch from shapes and dtype alone: bf16 at D
+    64 / 112 / 128 with pages of a multiple of 8 takes the group kernel,
+    a block per KV head (the grid's y is Hkv), chunks of whole stages
+    that cover the table, stages of whole pages and a multiple of 16
+    tokens; f32, the smoke widths and other pages take the split kernel
+    (a block per query head); both write the (B, Hq, n_split, D + 2)
+    workspace the merge reads."""
+    b = 8
+    plan = decode_attention.paged_plan(b, hq, hkv, mp, ps, d, dtype)
+    assert plan.route == route
+    assert plan.workspace == (b, hq, plan.n_split, d + 2)
+    assert plan.grid[0] == plan.n_split and plan.grid[2] == b
+    if route == "split":
+        assert plan.grid[1] == hq and plan.chunk_pages == 0
+        assert plan.n_split == -(-(mp * ps) // decode_attention.SPLIT_TOKENS)
+        legacy = decode_attention.paged_plan(b, hq, hkv, mp, ps, d, dtype,
+                                             legacy=True)
+        assert legacy == plan
+        return
+    assert plan.grid[1] == hkv
+    stage_tokens = plan.stage_pages * ps
+    assert stage_tokens % 16 == 0    # whole 16-token mma slices
+    assert stage_tokens <= decode_attention.MAX_STAGE_TOKENS
+    assert plan.chunk_pages % plan.stage_pages == 0   # whole stages
+    assert plan.chunk_pages <= decode_attention.MAX_CHUNK_PAGES
+    # the chunks cover the table's MP * ps positions, and no chunk is idle
+    assert plan.n_split * plan.chunk_pages >= mp
+    assert (plan.n_split - 1) * plan.chunk_pages < mp
+    # 64-token stages where whole pages make them, else one page; chunks
+    # of the whole stages nearest 512 positions
+    assert (plan.stage_pages, plan.chunk_pages) == {
+        16: (4, 32), 32: (2, 16), 48: (1, 11), 80: (1, 6)}[ps]
+    legacy = decode_attention.paged_plan(b, hq, hkv, mp, ps, d, dtype,
+                                         legacy=True)
+    assert legacy.route == "split" and legacy.grid[1] == hq
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels vs their plain versions (card only)
 # ---------------------------------------------------------------------------
@@ -560,12 +679,18 @@ def cuda():
     (3, 2, 2, 16, 4), (3, 2, 2, 8, 8), (2, 6, 2, 16, 4), (4, 4, 4, 128, 16),
     (2, 40, 8, 128, 16), (2, 4, 4, 64, 16), (3, 4, 2, 64, 80),
     (2, 8, 4, 128, 48), (2, 4, 4, 112, 16),
+    # bf16 takes the group kernel: groups of 2, 5, 6, 8 and 12 at D 128,
+    # pages of 16 and 32 (hybrid_pd hands off into pages of 32)
+    (3, 8, 4, 128, 16), (3, 40, 8, 128, 32), (2, 12, 2, 128, 16),
+    (2, 64, 8, 128, 32), (2, 96, 8, 128, 16), (3, 32, 32, 128, 32),
 ])
 def test_paged_decode_attention_kernel_matches_plain(cuda, dtype, b, hq,
                                                      hkv, d, ps):
-    """GQA, poisoned stale offsets, a kv_len == 0 row; the last two
-    cases hold 640 and 384 positions a row, so the split-KV grid cuts
-    them into chunks of 214 and 192 that do not end on a page."""
+    """GQA, poisoned stale offsets, a kv_len == 0 row; in f32 the split
+    kernel (the cases of 640 and 384 positions a row are cut into chunks
+    of 214 and 192 that do not end on a page), in bf16 the group kernel
+    where ``paged_plan`` routes it (pages of 80 and 48: stages of one
+    page of 5 and 3 mma slices)."""
     dt = getattr(torch, dtype)
     s = 8 * ps
     table, _, _, k_pages, v_pages, kv_len = _paged_fixture(
@@ -582,6 +707,80 @@ def test_paged_decode_attention_kernel_matches_plain(cuda, dtype, b, hq,
     tol = TOL if dt == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert (got[0] == 0).all()
+
+
+def _paged_lengths_case(cuda, hq, hkv, d, ps, lens, mp, stale, seed=0):
+    """bf16 inputs over a pool in random page order, rows of the given
+    lengths, -1 past each row's last page; every stale position (the
+    last live page's tail, every page no row holds) set to ``stale``.
+    Returns the inputs and the same with the stale positions zeroed."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    b = len(lens)
+    n_pages = b * mp + 2
+    perm = torch.randperm(n_pages, generator=g, device=cuda).int()
+    table = torch.full((b, mp), -1, dtype=torch.int32, device=cuda)
+    live = torch.zeros(n_pages, ps, dtype=torch.bool, device=cuda)
+    for i, n in enumerate(lens):
+        used = -(-n // ps)
+        table[i, :used] = perm[i * mp:i * mp + used]
+        for t in range(0, n, ps):
+            live[table[i, t // ps], :min(ps, n - t)] = True
+    q = torch.randn(b, hq, d, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(n_pages, hkv, ps, d, generator=g,
+                        device=cuda).bfloat16() for _ in range(2))
+    mask = live[:, None, :, None]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    clean = [q, torch.where(mask, k, 0), torch.where(mask, v, 0), table,
+             kv_len]
+    return [q, torch.where(mask, k, stale), torch.where(mask, v, stale),
+            table, kv_len], clean
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,d,ps", [
+    (40, 8, 128, 16), (64, 8, 128, 16), (32, 32, 128, 16), (32, 32, 112, 16),
+    (40, 8, 128, 32), (16, 8, 64, 16),
+])
+def test_paged_group_kernel_lengths(cuda, hq, hkv, d, ps):
+    """Rows ending mid-page, mid-chunk, on a page, on a chunk (chunks of
+    512 positions), one position into a chunk, 0 (zeros) and at the
+    table's end, over 80 pages a row: the group kernel against the plain
+    version, and the split kernel (``legacy=True``) too."""
+    mp = 80
+    chunk = decode_attention.paged_plan(1, hq, hkv, mp, ps, d,
+                                        torch.bfloat16).chunk_pages * ps
+    lens = [0, 1, 7 * ps + 5, 8 * ps, chunk, chunk + 1, chunk + 3 * ps + 9,
+            mp * ps]
+    args, _ = _paged_lengths_case(cuda, hq, hkv, d, ps, lens, mp, 0.0)
+    want = ref.paged_decode_attention_ref(*args)
+    for legacy in (False, True):
+        got = decode_attention.paged_decode_attention(*args, legacy=legacy)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+        assert (got[0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stale", [float("nan"), float("inf")])
+@pytest.mark.parametrize("hq,hkv,d,ps", [(40, 8, 128, 16), (32, 32, 112, 32)])
+def test_paged_group_kernel_ignores_nan_stale_rows(cuda, stale, hq, hkv, d,
+                                                   ps):
+    """NaN or Inf in every stale position — the tail of each row's last
+    page, which the group kernel copies whole, and the pages past
+    kv_len, which it never reads: the output is finite and matches the
+    plain version on a copy whose stale positions are zero."""
+    mp = 40
+    lens = [3, ps + 1, 5 * ps - 1, 17 * ps + 7, mp * ps - 2, 0]
+    args, clean = _paged_lengths_case(cuda, hq, hkv, d, ps, lens, mp, stale,
+                                      seed=1)
+    got = decode_attention.paged_decode_attention(*args)
+    want = ref.paged_decode_attention_ref(*clean)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    assert (got[-1] == 0).all()
 
 
 @pytest.mark.cuda
