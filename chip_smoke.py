@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
-``build/kernels/``), then runs eighteen phases, each printing a JSON
+``build/kernels/``), then runs nineteen phases, each printing a JSON
 line (``hybrid`` and ``moe`` a second one for their hand-offs,
 ``parity`` one per model):
 
@@ -189,6 +189,19 @@ line (``hybrid`` and ``moe`` a second one for their hand-offs,
    then ``qwen32b_decode``: one prefill and two decode blocks of 8 x
    512-token prompts traced as ``--profile`` does, a decode pass's
    device ms and the paged kernel's ms and share of it.
+19. ``dryrun`` (run after ``spec``, on its qwen7b) — the meta-device dry
+   run (``repro_torch.launch.dryrun``) of three cells on a ``(data 1,
+   model 1)`` mesh, then the same cells on their real tensors on the
+   card: qwen7b ``prefill`` of 8 x 512 tokens and ``decode_step`` of 8
+   rows over a 2048-position cache (bf16, the kernel route), and
+   hubert-xlarge's train step over 8 x 512 frames (f32, TF32 off, remat,
+   one pass).  For each: the dry run's ``argument_bytes`` beside the
+   bytes of the tensors the card's cell allocates (they must be
+   equal), the peak memory over a step, the step's device ms, the
+   three roofline terms (hubert's compute term against the f32 peak)
+   and the measured share ``max(compute, memory term) / device time``,
+   which must not pass 1.05: the terms are lower bounds.  Flash and
+   decode attention must have launched.
 
 Then it prints the card's ``nvidia-smi`` name and power limit, one JSON
 line with every kernel's numbers, and, last,
@@ -217,6 +230,10 @@ kernel in turns (``paged_e2e``: wall and device ms a pass).
 
 instead runs only the ``train_pod`` phase, with no kernel built (it
 launches none).
+
+    python3 chip_smoke.py --dryrun
+
+instead builds the kernels and runs only the ``dryrun`` phase.
 
     python3 chip_smoke.py --profile
 
@@ -294,6 +311,9 @@ TRAIN_CKPT = ROOT / "build" / "train_ckpt"
 POD_AXES = ("pod", "data", "model")
 POD_STEPS, POD_LAYERS, POD_TOL = 3, 4, 1e-5
 POD_DIR = ROOT / "build" / "train_pod"
+# dryrun phase: the dry run's one-card cells, (batch, positions) each
+DRYRUN_PREFILL, DRYRUN_DECODE, DRYRUN_TRAIN = (8, 512), (8, 2048), (8, 512)
+DRYRUN_SHARE_MAX = 1.05
 
 
 def emit(obj) -> None:
@@ -3178,6 +3198,99 @@ DECODE_ATTENTION_KERNELS = (PAGED_GROUP_KERNEL, "paged_decode_attention_split",
                             "decode_merge_kernel")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the dry run's one-card cells measured
+# ---------------------------------------------------------------------------
+
+
+def dryrun_phase(torch, dev, model, smi: str) -> dict:
+    """The meta-device dry run of three one-card cells against the same
+    cells on the card (see the module docstring, phase 19); ``model`` is
+    the loaded full-width bf16 qwen7b, whose parameters are the serving
+    cells' own."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models.build import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = MeshSpec(("data", "model"), (1, 1))
+    ops.reset_launch_counts()
+
+    def cell(name, cfg, shape, on_card, peak, iters):
+        t0 = time.perf_counter()
+        rec = dryrun.measure_cell(cfg, shape, mesh)
+        dryrun.analyze_terms(rec, cfg, shape, mesh, peak_flops=peak)
+        meta_s = time.perf_counter() - t0
+        c = dryrun.build_cell(cfg, shape, mesh, model=on_card)
+        allocated = sum(t.nbytes for t in c.args.values())
+        c.step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c.step()
+        torch.cuda.synchronize()
+        peak_mem = torch.cuda.max_memory_allocated()
+        ms = device_ms(torch, c.step, iters)
+        bound_s = max(rec["compute_term_s"], rec["memory_term_s"])
+        out = {"cell": name, "model": cfg.name, "kind": shape.kind,
+               "batch": [shape.global_batch, shape.seq_len],
+               "dtype": str(c.model.dtype).replace("torch.", ""),
+               "argument_bytes": rec["memory"]["argument_bytes"],
+               "allocated_bytes": allocated,
+               "peak_mem_bytes": peak_mem, "device_ms": ms,
+               "flops_per_device": rec["flops_per_device"],
+               "bytes_per_device": rec["bytes_per_device"],
+               "peak_flops": peak,
+               "compute_term_s": rec["compute_term_s"],
+               "memory_term_s": rec["memory_term_s"],
+               "collective_term_s": rec["collective_term_s"],
+               "bottleneck": rec["bottleneck"],
+               "roofline_share": bound_s / (ms / 1e3),
+               "useful_flops_ratio": rec["useful_flops_ratio"],
+               "meta_s": meta_s, "nvidia_smi": smi}
+        check(allocated == out["argument_bytes"],
+              f"dryrun {name}: {allocated} bytes allocated, the dry run "
+              f"counts {out['argument_bytes']}")
+        check(out["roofline_share"] <= DRYRUN_SHARE_MAX,
+              f"dryrun {name}: a step {ms} ms beats its lower bound "
+              f"{1e3 * bound_s} ms (share {out['roofline_share']})")
+        del c
+        return out
+
+    qwen = get_config("qwen7b")
+    cells = [
+        cell("qwen7b_prefill", qwen,
+             ShapeSpec("prefill_8x512", DRYRUN_PREFILL[1],
+                       DRYRUN_PREFILL[0], "prefill"),
+             model, dryrun.PEAK_FLOPS, 3),
+        cell("qwen7b_decode", qwen,
+             ShapeSpec("decode_8x2048", DRYRUN_DECODE[1], DRYRUN_DECODE[0],
+                       "decode"),
+             model, dryrun.PEAK_FLOPS, 5),
+    ]
+    torch.cuda.empty_cache()
+    hubert = get_config("hubert-xlarge")
+    trainee = Model(hubert, device=dev, remat=True, use_kernels=False)
+    trainee.init(torch.Generator(device=dev).manual_seed(SEED))
+    cells.append(cell("hubert_train", hubert,
+                      ShapeSpec("train_8x512", DRYRUN_TRAIN[1],
+                                DRYRUN_TRAIN[0], "train"),
+                      trainee, dryrun.F32_PEAK_FLOPS, 2))
+    del trainee
+    torch.cuda.empty_cache()
+    launches = ops.launch_counts()
+    for kernel in ("flash_attention", "decode_attention"):
+        check(launches[kernel] > 0,
+              f"dryrun: {kernel} never launched: {launches}")
+    out = {"phase": "dryrun", "mesh": {"data": 1, "model": 1},
+           "cells": cells, "launches": launches}
+    emit(out)
+    return out
+
+
 def trace_summary(path: Path, wall_s: float) -> dict:
     """Device busy time (union of kernel intervals), kernel time by name,
     the decode-attention kernels' time and count, launch count and the
@@ -3301,6 +3414,11 @@ def main() -> int:
         torch.cuda.synchronize()
         return model, time.perf_counter() - t0
 
+    if "--dryrun" in sys.argv[1:]:
+        model, _ = load("qwen7b")
+        dryrun_phase(torch, dev, model, smi)
+        return 0
+
     if "--paged-variants" in sys.argv[1:]:
         emit(paged_variants(torch, dev))
         emit(paged_e2e(torch, dev))
@@ -3331,6 +3449,7 @@ def main() -> int:
     pd = pd_phase(torch, dev, model)
     prefix = prefix_phase(torch, dev, model)
     spec = spec_phase(torch, dev, model)
+    dry = dryrun_phase(torch, dev, model, smi)
     del model                  # free qwen7b before the clusters draw theirs
     torch.cuda.empty_cache()
     cluster = cluster_phase(torch, dev, "cluster")
@@ -3396,7 +3515,7 @@ def main() -> int:
                   "mamba": mamba, "hybrid": hybrid, "hybrid_pd": hybrid_pd,
                   "feature_parity": feature_parity, "moe": moe_out,
                   "moe_pd": moe_pd, "hubert": hubert, "train": train,
-                  "train_pod": train_pod, "qwen32b": qwen32b}
+                  "train_pod": train_pod, "qwen32b": qwen32b, "dryrun": dry}
     csrc = "src/repro_torch/kernels/csrc"
     kernels = []
     for name, replaces in (

@@ -19,11 +19,27 @@ from repro_torch.models.common import apply_rope
 
 NEG_INF = -1e30
 
+# Logical axes of the attention parameters (JAX's ``ATTN_PARAM_AXES``):
+# (embed-in, fused-heads-out); the rules shard the fused head dim when
+# the head count divides the model axis, else only over fsdp.
+ATTN_PARAM_AXES = {
+    "wq": ("fsdp", "heads_fused"),
+    "wk": ("fsdp", "kv_fused"),
+    "wv": ("fsdp", "kv_fused"),
+    "wo": ("heads_fused", "fsdp"),
+    "bq": ("heads_fused",),
+    "bk": ("kv_fused",),
+    "bv": ("kv_fused",),
+}
+
 
 def project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                positions: torch.Tensor, use_rope: bool = True):
-    """x: (B, S, d) -> q (B, Hq, S, hd), k/v (B, Hkv, S, hd).  ``p``
-    holds wq/wk/wv as (in, out) and, with qkv_bias, bq/bk/bv."""
+                positions: torch.Tensor, use_rope: bool = True,
+                kv_repeat: int = 1):
+    """x: (B, S, d) -> q (B, Hq, S, hd), k/v (B, Hkv * kv_repeat, S, hd).
+    ``p`` holds wq/wk/wv as (in, out) and, with qkv_bias, bq/bk/bv; with
+    ``kv_repeat`` > 1 each K/V head is repeated that many times in place
+    (JAX's ``jnp.repeat`` on the head axis), after RoPE."""
     hd = cfg.resolved_head_dim
     b, s, _ = x.shape
     q = x @ p["wq"]
@@ -39,6 +55,9 @@ def project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     if use_rope:
         q = apply_rope(q, positions[:, None, :], cfg.rope_theta)
         k = apply_rope(k, positions[:, None, :], cfg.rope_theta)
+    if kv_repeat > 1:
+        k = torch.repeat_interleave(k, kv_repeat, dim=1)
+        v = torch.repeat_interleave(v, kv_repeat, dim=1)
     return q, k, v
 
 

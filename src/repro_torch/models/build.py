@@ -25,7 +25,14 @@ in the text vocabulary) is the plain token path, as in JAX; the
 - the slot plane: ``prefill`` (monolithic prompt prefill returning slot
   caches; none for an encoder-only model), ``decode_step``,
   ``decode_block_slots``, ``init_cache`` / ``cache_axes``;
-- the ``supports_*`` properties.
+- the ``supports_*`` properties;
+- the sharding plan's knobs, as JAX's ``Model`` takes them (their
+  values come from ``distributed.sharding.plan_arch``): ``kv_repeat``
+  (K/V heads repeated after projection; caches hold ``n_kv_heads *
+  kv_repeat`` heads), ``q_chunk`` (the plain prefill attention's query
+  chunk) and ``vocab_pad`` (embedding and head rows that labels never
+  index; logits and the loss's logsumexp include them, as in JAX), and
+  the logical axes ``param_axes()`` / ``cache_logical_axes()``.
 
 Parameters are built with ``requires_grad=False`` and the serving
 methods run under ``torch.no_grad()``: serving never records a graph.
@@ -191,7 +198,8 @@ class Model(nn.Module):
     raises without a card); tests pass ``device="cpu"``."""
 
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32,
-                 device=None, use_kernels: bool = True, remat: bool = False):
+                 device=None, use_kernels: bool = True, remat: bool = False,
+                 kv_repeat: int = 1, q_chunk: int = 512, vocab_pad: int = 0):
         super().__init__()
         kinds = [k for k, n in cfg.layer_pattern() for _ in range(n)]
         self.cfg = cfg
@@ -201,6 +209,10 @@ class Model(nn.Module):
         # forward/loss: recompute each layer in the backward pass (JAX's
         # jax.checkpoint(..., nothing_saveable) around each scanned layer)
         self.remat = remat
+        # the sharding plan's knobs (see the module docstring)
+        self.kv_repeat = kv_repeat
+        self.q_chunk = q_chunk
+        self.vocab_pad = vocab_pad
         # per layer, in execution order: its kind, its window (0 = full
         # attention), and its row in the stacked paged caches (the K/V
         # pools of attention layers, the state of Mamba-2 layers)
@@ -212,10 +224,11 @@ class Model(nn.Module):
         self.n_mamba = sum(is_mamba)
         self.n_attn = len(kinds) - self.n_mamba
         kw = dict(dtype=dtype, device=self.device)
-        self.embed = _param(cfg.vocab_size, cfg.d_model, **kw)
+        v = cfg.vocab_size + vocab_pad
+        self.embed = _param(v, cfg.d_model, **kw)
         self.final_norm = _param(cfg.d_model, **kw)
         self.head = (None if cfg.tie_embeddings
-                     else _param(cfg.vocab_size, cfg.d_model, **kw))
+                     else _param(v, cfg.d_model, **kw))
         self.shared = (DenseBlock(cfg, dtype, self.device)
                        if "shared_attn" in kinds else None)
         # a shared_attn position holds no parameters: it runs self.shared
@@ -246,6 +259,11 @@ class Model(nn.Module):
                 for w in ffn.values():
                     init_dense(w, generator)
         return self
+
+    @property
+    def n_kv_eff(self) -> int:
+        """K/V heads a cache holds: ``n_kv_heads * kv_repeat``."""
+        return self.cfg.n_kv_heads * self.kv_repeat
 
     def blocks(self):
         """(kind, block, window, cache row) of every layer in execution
@@ -299,7 +317,8 @@ class Model(nn.Module):
         on the frontend (not the kind)."""
         h = rms_norm(x, blk.ln1, self.cfg.norm_eps)
         return attn.project_qkv(blk.attn, h, self.cfg, positions=positions,
-                                use_rope=self.cfg.frontend != "frames")
+                                use_rope=self.cfg.frontend != "frames",
+                                kv_repeat=self.kv_repeat)
 
     def _paged_layer(self, blk: AttnBlock, x, *, positions, kv_len,
                      k_pages, v_pages, page_table, index):
@@ -333,7 +352,8 @@ class Model(nn.Module):
                                        v.contiguous(), causal=self.cfg.causal,
                                        window=window)
         return attn.chunked_attention(q, k, v, lens=lens,
-                                      causal=self.cfg.causal, window=window)
+                                      causal=self.cfg.causal, window=window,
+                                      q_chunk=self.q_chunk)
 
     def _prefill_layer(self, blk: AttnBlock, x, window: int, *, positions,
                        lens, cache_len: int):
@@ -668,25 +688,27 @@ class Model(nn.Module):
         return (torch.stack(toks, 1), torch.stack(valids, 1), last,
                 pos), caches
 
-    def init_cache(self, batch_size: int, max_len: int) -> list:
-        """Zeroed slot caches, one dict per layer.  Attention: K/V
+    def init_cache(self, batch_size: int, max_len: int, device=None) -> list:
+        """Zeroed slot caches, one dict per layer, on ``device`` (default:
+        the model's; ``"meta"`` gives shapes only).  Attention: K/V
         (B, Hkv, S, hd) in the model's dtype with S = ``min(window,
         max_len)`` for local layers and ``max_len`` otherwise; pos
         (B, S) int32, -1 = empty.  Mamba-2: ``_mamba_state`` with no
         lead dim."""
         cfg = self.cfg
-        kw = dict(dtype=self.dtype, device=self.device)
+        device = self.device if device is None else device
+        kw = dict(dtype=self.dtype, device=device)
         out = []
         for kind, window in zip(self.kinds, self.windows):
             if kind == "mamba":
-                out.append(self._mamba_state((), batch_size))
+                out.append(self._mamba_state((), batch_size, device))
                 continue
             slen = min(window, max_len) if window else max_len
-            shape = (batch_size, cfg.n_kv_heads, slen, cfg.resolved_head_dim)
+            shape = (batch_size, self.n_kv_eff, slen, cfg.resolved_head_dim)
             out.append({
                 "k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw),
                 "pos": torch.full((batch_size, slen), -1, dtype=torch.int32,
-                                  device=self.device),
+                                  device=device),
             })
         return out
 
@@ -696,18 +718,20 @@ class Model(nn.Module):
                               else ("k", "v", "pos"), 0)
                 for k in self.kinds]
 
-    def _mamba_state(self, lead: tuple, batch_size: int) -> dict:
+    def _mamba_state(self, lead: tuple, batch_size: int,
+                     device=None) -> dict:
         """Zeroed Mamba-2 state with leading dims ``lead``: conv histories
         (…, B, cw-1, d_inner) and (…, B, cw-1, 2GN) in the model's dtype,
         the SSM state (…, B, H, P, N) in f32 (``_mamba_cache`` in JAX)."""
         di, h, n, g, p, cw = mamba2.mamba_dims(self.cfg)
-        kw = dict(dtype=self.dtype, device=self.device)
+        device = self.device if device is None else device
+        kw = dict(dtype=self.dtype, device=device)
         return {
             "conv_x": torch.zeros(lead + (batch_size, cw - 1, di), **kw),
             "conv_bc": torch.zeros(lead + (batch_size, cw - 1, 2 * g * n),
                                    **kw),
             "ssm": torch.zeros(lead + (batch_size, h, p, n),
-                               dtype=torch.float32, device=self.device),
+                               dtype=torch.float32, device=device),
         }
 
     # -- cache allocation -------------------------------------------------------
@@ -727,7 +751,7 @@ class Model(nn.Module):
             n_pages = n_slots * (-(-max_len // page_size))
         out = []
         if self.n_attn:
-            shape = (self.n_attn, n_pages, cfg.n_kv_heads, page_size,
+            shape = (self.n_attn, n_pages, self.n_kv_eff, page_size,
                      cfg.resolved_head_dim)
             kw = dict(dtype=self.dtype, device=self.device)
             out.append({"k_pages": torch.zeros(shape, **kw),
@@ -746,6 +770,48 @@ class Model(nn.Module):
         if self.n_mamba:
             out.append(dict.fromkeys(MAMBA_LEAVES, 1))
         return out
+
+    # -- logical axes (the sharding plans) ------------------------------------
+    def param_axes(self) -> dict:
+        """Logical axes of every parameter, by its name in
+        ``named_parameters``: JAX's ``Model.param_axes()`` leaf for leaf,
+        without the lead ``"layers"`` entries of its stacked leaves (the
+        port's layers are a flat list)."""
+        out = {"embed": ("vocab", "fsdp"), "final_norm": (None,)}
+        if self.head is not None:
+            out["head"] = ("vocab", "fsdp")
+        if self.shared is not None:
+            out.update(_block_axes(self.shared, "shared."))
+        for i, blk in enumerate(self.layers):
+            out.update(_block_axes(blk, f"layers.{i}."))
+        return out
+
+    def cache_logical_axes(self) -> list:
+        """Logical axes of every leaf of :meth:`init_cache`'s caches, one
+        dict per layer (JAX's ``cache_logical_axes()`` without the lead
+        ``"layers"`` entries)."""
+        attn_axes = {"k": ("batch", "kv_heads", "cache_seq", None),
+                     "v": ("batch", "kv_heads", "cache_seq", None),
+                     "pos": ("batch", "cache_seq")}
+        mamba_axes = {"conv_x": ("batch", None, "ssm_inner"),
+                      "conv_bc": ("batch", None, None),
+                      "ssm": ("batch", "ssm_heads", None, None)}
+        return [dict(mamba_axes if k == "mamba" else attn_axes)
+                for k in self.kinds]
+
+
+def _block_axes(blk: nn.Module, prefix: str) -> dict:
+    """Logical axes of one block's parameters, named ``prefix`` + their
+    name in the block (JAX's ``_block_axes`` with no lead dim)."""
+    table = {"attn": attn.ATTN_PARAM_AXES, "moe": moe.MOE_PARAM_AXES,
+             "mamba": mamba2.MAMBA_PARAM_AXES,
+             "ffn": {"w_gate": ("fsdp", "ff"), "w_up": ("fsdp", "ff"),
+                     "w_down": ("ff", "fsdp")}}
+    out = {}
+    for name, _ in blk.named_parameters():
+        part, _, leaf = name.partition(".")
+        out[prefix + name] = table[part][leaf] if leaf else (None,)
+    return out
 
 
 def _paged_parts(caches) -> tuple:

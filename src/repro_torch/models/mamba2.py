@@ -46,6 +46,22 @@ def mamba_param_shapes(cfg: ModelConfig) -> dict:
         "w_out": (di, d),
     }
 
+# Logical axes of each parameter (JAX's ``MAMBA_PARAM_AXES``), for the
+# sharding plans of ``repro_torch.distributed.sharding``.
+MAMBA_PARAM_AXES = {
+    "w_z": ("fsdp", "ssm_inner"),
+    "w_x": ("fsdp", "ssm_inner"),
+    "w_bc": ("fsdp", None),
+    "w_dt": ("fsdp", "ssm_heads"),
+    "dt_bias": ("ssm_heads",),
+    "conv_x": (None, "ssm_inner"),
+    "conv_bc": (None, None),
+    "A_log": ("ssm_heads",),
+    "D": ("ssm_heads",),
+    "norm_scale": ("ssm_inner",),
+    "w_out": ("ssm_inner", "fsdp"),
+}
+
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)``, written as the JAX package writes it."""

@@ -42,6 +42,14 @@ def moe_param_shapes(cfg: ModelConfig) -> dict:
         "w_down": (m.num_experts, m.expert_d_ff, d),
     }
 
+# Logical axes of each parameter (JAX's ``MOE_PARAM_AXES``)
+MOE_PARAM_AXES = {
+    "w_router": ("fsdp", None),
+    "w_gate": ("experts", "fsdp", "ff"),
+    "w_up": ("experts", "fsdp", "ff"),
+    "w_down": ("experts", "ff", "fsdp"),
+}
+
 
 def capacity(cfg: ModelConfig, n_tokens: int) -> int:
     m = cfg.moe

@@ -33,7 +33,7 @@ from repro_torch.training.optimizer import (
     adamw_update,
 )
 
-_SHARDING_ITEM = "ROADMAP.md §1 item 8b (sharding plans)"
+_MESH_ITEM = "ROADMAP.md §1 item 11 (running a data or model mesh)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,14 +114,18 @@ def build_train_step(model, cfg: TrainConfig = TrainConfig(),
     segment's layers is one leaf); that path ignores
     ``cfg.micro_batches``, as JAX's does.  Otherwise the step is the
     micro-batch or the plain one, whatever the mesh.  A mesh whose
-    ``data`` or ``model`` dimension is larger than 1 raises: the port
-    has no sharding plans."""
+    ``data`` or ``model`` dimension is larger than 1 raises: its plans
+    exist (``distributed/sharding.py``), but running them needs a
+    gradient mean over the data group and tensor parallelism, which JAX
+    gets from its SPMD partitioner and the port does not have yet."""
     names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
     for axis in ("data", "model"):
         if axis in names and mesh.size(names.index(axis)) > 1:
             raise NotImplementedError(
-                f"a mesh with {axis} > 1 needs sharding plans, not "
-                f"ported ({_SHARDING_ITEM})")
+                f"a mesh with {axis} > 1 is planned "
+                f"(repro_torch.distributed.sharding) but not run: it needs "
+                f"a gradient mean over the data group and tensor "
+                f"parallelism ({_MESH_ITEM})")
     vg = None
     if cfg.grad_compression and "pod" in names:
         vg = compression.pod_manual_value_and_grad(

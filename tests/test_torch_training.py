@@ -544,7 +544,7 @@ def _data_axis_worker(rank, store_path, out_dir):
         for shape in ((1, 2, 1), (1, 1, 2)):
             mesh = init_device_mesh("cpu", shape, mesh_dim_names=AXES)
             with pytest.raises(NotImplementedError,
-                               match=r"ROADMAP\.md §1 item 8b"):
+                               match=r"ROADMAP\.md §1 item 11"):
                 build_train_step(model, cfg, mesh)
         build_train_step(model, cfg, init_device_mesh(
             "cpu", (2, 1, 1), mesh_dim_names=AXES))
@@ -554,8 +554,8 @@ def _data_axis_worker(rank, store_path, out_dir):
 
 def test_a_mesh_with_data_or_model_axes_raises(tmp_path):
     """Two ranks: a mesh with ``data`` 2 or ``model`` 2 raises and names
-    the ROADMAP item (the port has no sharding plans: it neither shards
-    silently nor drops the axis); ``pod`` 2 builds."""
+    the ROADMAP item (the port plans such a mesh but cannot run it: it
+    neither shards silently nor drops the axis); ``pod`` 2 builds."""
     ctx = mp.start_processes(_data_axis_worker,
                              args=(str(tmp_path / "store"), str(tmp_path)),
                              nprocs=2, start_method="spawn", join=False)
