@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
-``build/kernels/``), then runs nineteen phases, each printing a JSON
+``build/kernels/``), then runs twenty phases, each printing a JSON
 line (``hybrid`` and ``moe`` a second one for their hand-offs,
 ``parity`` one per model):
 
@@ -202,6 +202,29 @@ line (``hybrid`` and ``moe`` a second one for their hand-offs,
    and the measured share ``max(compute, memory term) / device time``,
    which must not pass 1.05: the terms are lower bounds.  Flash and
    decode attention must have launched.
+20. ``examples`` (run last) — the port's five examples
+   (``examples/*_torch.py``) in this process through ``main(argv)``, on
+   the card (their default device), at the JAX package's CI arguments:
+   ``quickstart``; ``serve_engine_e2e --n-requests 12 --slots 4`` on
+   qwen7b (paged), gemma3-4b (slot plane) and mamba2-2.7b (paged, no
+   attention layer: no kernel); ``pd_disaggregated --backend engine
+   --smoke`` and ``--smoke`` (sim); ``online_serving --smoke``;
+   ``train_small --steps 100`` into a fresh directory under ``build/``,
+   then ``--steps 120`` on it.  The examples' own lines go to stderr.
+   Each run has the counts set to 0 just before it: every request must
+   be served, the kernels of its path (``EXAMPLE_RUNS``) launched and no
+   other, and every kernel call of the run agree with the plain version
+   on that call's own inputs (f32 at D 16 here: the paged split, the
+   CUDA-core flash and the contiguous decode instances, which the
+   kernels phase does not reach; 2e-5, the gather exactly); the P/D run
+   must make 8 hand-offs, ``train_small``'s loss must stay within 0.05
+   of ln(vocab) (its data are uniform random tokens: the loss starts at
+   that floor and cannot fall) while its gradient norm falls from step 1
+   to step 100 and every parameter tensor of its step-50 and step-100
+   checkpoints differs from its start, and its second run resume from
+   step 100.  Prints per run its wall seconds, served / total, launches
+   and the calls held, and ``train_small``'s s/step, tokens/s, first
+   and last loss and gradient norm and how far its parameters moved.
 
 Then it prints the card's ``nvidia-smi`` name and power limit, one JSON
 line with every kernel's numbers, and, last,
@@ -234,6 +257,10 @@ launches none).
     python3 chip_smoke.py --dryrun
 
 instead builds the kernels and runs only the ``dryrun`` phase.
+
+    python3 chip_smoke.py --examples
+
+instead builds the kernels and runs only the ``examples`` phase.
 
     python3 chip_smoke.py --profile
 
@@ -314,6 +341,46 @@ POD_DIR = ROOT / "build" / "train_pod"
 # dryrun phase: the dry run's one-card cells, (batch, positions) each
 DRYRUN_PREFILL, DRYRUN_DECODE, DRYRUN_TRAIN = (8, 512), (8, 2048), (8, 512)
 DRYRUN_SHARE_MAX = 1.05
+# examples phase: the port's examples (examples/*_torch.py) at the JAX
+# CI's arguments, in process; each run with the kernels its path must
+# launch (no other may).  mamba2-2.7b serves on the paged plane, as in
+# the JAX package: it has no attention layer, and each prefill chunk
+# carries the SSM state, which the SSD kernel does not take (the hybrid
+# phase's rule; JAX's gate is src/repro/models/mamba2.py:262, a chunk
+# reaches its Pallas kernel only when ``ssm_state is None``), so it
+# launches no kernel: an SSD kernel that takes an initial state would
+# change this entry and that rule together.  Training takes the plain
+# routes (no kernel has a backward).
+E2E_ARGS = ("--n-requests", "12", "--slots", "4")
+EXAMPLE_RUNS = (
+    ("quickstart", "quickstart_torch", (), ("paged_decode_attention",)),
+    ("serve_engine_e2e qwen7b", "serve_engine_e2e_torch",
+     ("--arch", "qwen7b", *E2E_ARGS), ("paged_decode_attention",)),
+    ("serve_engine_e2e gemma3-4b", "serve_engine_e2e_torch",
+     ("--arch", "gemma3-4b", *E2E_ARGS),
+     ("flash_attention", "decode_attention")),
+    ("serve_engine_e2e mamba2-2.7b", "serve_engine_e2e_torch",
+     ("--arch", "mamba2-2.7b", *E2E_ARGS), ()),
+    ("pd_disaggregated engine", "pd_disaggregated_torch",
+     ("--backend", "engine", "--smoke"),
+     ("paged_decode_attention", "page_gather")),
+    ("pd_disaggregated sim", "pd_disaggregated_torch", ("--smoke",), ()),
+    ("online_serving", "online_serving_torch", ("--smoke",),
+     ("paged_decode_attention",)),
+    ("train_small", "train_small_torch", ("--steps", "100"), ()),
+    ("train_small resume", "train_small_torch", ("--steps", "120"), ()),
+)
+EXAMPLE_PD_TRANSFERS = 8
+# train_small's data are uniform random tokens (training/data.py), so no
+# model's expected loss is below ln(vocab), and the initial model already
+# sits there (10.38 at step 1 in both packages): its loss cannot fall.  A
+# run that trains stays within this band of ln(vocab) while its gradient
+# norm shrinks (the logits flatten toward the uniform optimum).
+EXAMPLE_LOSS_BAND = 0.05
+# every kernel call of the examples' runs is held against the plain
+# version on the same inputs, at the kernels phase's rtol = atol for
+# the call's dtype, the gather exactly
+EXAMPLE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def emit(obj) -> None:
@@ -3368,6 +3435,226 @@ def profile_phase(torch, dev, model, engine_kw: dict, l_in: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 20: the port's examples
+# ---------------------------------------------------------------------------
+
+
+class KeptKernelCalls:
+    """For the ``with`` block, each kernel dispatcher of ``ops`` (the
+    functions the models and the KV manager call) keeps a copy of every
+    call's tensors in and out, for :meth:`hold` to compare with the
+    plain versions once the run is over."""
+
+    NAMES = ("paged_decode_attention", "page_gather", "flash_attention",
+             "decode_attention", "ssd", "rmsnorm")
+
+    def __init__(self, torch, ops):
+        self.torch, self.ops = torch, ops
+        self.calls = {name: [] for name in self.NAMES}
+
+    def _copy(self, x):
+        if isinstance(x, self.torch.Tensor):
+            return x.detach().clone()
+        if isinstance(x, tuple):
+            return tuple(self._copy(y) for y in x)
+        return x
+
+    def _keeping(self, name, fn):
+        def call(*args, **kw):
+            out = fn(*args, **kw)
+            self.calls[name].append((self._copy(args), kw, self._copy(out)))
+            return out
+        return call
+
+    def __enter__(self):
+        self.orig = {n: getattr(self.ops, n) for n in self.NAMES}
+        for name, fn in self.orig.items():
+            setattr(self.ops, name, self._keeping(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.ops, name, fn)
+
+    def hold(self, label: str) -> dict:
+        """Every kept call's output against the plain version on its
+        inputs; per kernel: calls, dtypes, head dims (the last axis of
+        the first input), the max abs error and the tolerance."""
+        from repro_torch.kernels import ref
+
+        torch = self.torch
+        plain = {"paged_decode_attention": ref.paged_decode_attention_ref,
+                 "page_gather": ref.page_gather_ref,
+                 "flash_attention": ref.flash_attention_ref,
+                 "decode_attention": ref.decode_attention_ref,
+                 "ssd": ref.ssd_ref, "rmsnorm": ref.rmsnorm_ref}
+        held = {}
+        for name, kept in self.calls.items():
+            if not kept:
+                continue
+            errs, dtypes, dims = [], set(), set()
+            for args, kw, got in kept:
+                dtype = str(args[0].dtype).removeprefix("torch.")
+                dtypes.add(dtype)
+                dims.add(int(args[0].shape[-1]))
+                want = plain[name](*args, **kw)
+                what = f"examples {label}: {name} on {dtype} " \
+                       f"{tuple(args[0].shape)}"
+                if name == "page_gather":
+                    check(torch.equal(got, want), f"{what}: not exact")
+                    errs.append(0.0)
+                    continue
+                pairs = (zip(got, want) if isinstance(got, tuple)
+                         else [(got, want)])
+                errs += [compare(torch, g, w, self.tol(name, dtype),
+                                 what)["max_abs_err"] for g, w in pairs]
+            held[name] = {"calls": len(kept), "dtypes": sorted(dtypes),
+                          "head_dims": sorted(dims),
+                          "max_abs_err": max(errs),
+                          "tol": {d: self.tol(name, d) for d in dtypes}}
+        return held
+
+    @staticmethod
+    def tol(name: str, dtype: str) -> float:
+        return 0.0 if name == "page_gather" else EXAMPLE_TOL[dtype]
+
+
+def train_small_moved(torch, mod, ckpt: str, device="cuda") -> dict:
+    """How far ``train_small``'s checkpoints moved its parameters from
+    the weights its runner starts from (``seeded_model`` of ``SMALL``
+    from seed 0, as ``Model.init`` draws them): per checkpoint step,
+    the norm of the change over the norm of the start, and the least
+    change of any one tensor (every one must have moved)."""
+    from repro_torch.distributed.checkpoint import all_steps, load_checkpoint
+    from repro_torch.models.build import seeded_model
+    from repro_torch.training.train_loop import trained_params
+
+    start = {f"params/{n}": p.detach() for n, p in
+             trained_params(seeded_model(mod.SMALL, device, 0)).items()}
+    norm0 = float(torch.sqrt(sum((p.float() ** 2).sum()
+                                 for p in start.values())))
+    moved = {}
+    for step in all_steps(ckpt):
+        flat, _ = load_checkpoint(ckpt, step, start, device=device)
+        deltas = {k: float((flat[k].float() - p.float()).norm())
+                  for k, p in start.items()}
+        moved[step] = {"rel_change": float(np.sqrt(sum(
+            d * d for d in deltas.values()))) / norm0,
+            "least_tensor_change": min(deltas.values())}
+    return moved
+
+
+def examples_phase(torch, smi: str) -> dict:
+    """Each of ``EXAMPLE_RUNS`` through its ``main(argv)`` on the card
+    (the examples' default device), its printed lines sent to stderr,
+    with the launch counts set to 0 just before it: every request
+    served, the kernels of its path launched and no other, and every
+    kernel call of the run held against the plain version on its own
+    inputs (``KeptKernelCalls``); P/D's hand-offs all made;
+    ``train_small``'s loss at its floor ln(vocab) while its gradient
+    norm falls from step 1 to 100, every parameter tensor moved by its
+    step-50 and step-100 checkpoints, and its second run resuming from
+    step 100."""
+    import contextlib
+    import importlib
+    import tempfile
+
+    from repro_torch.kernels import ops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sys.path.insert(0, str(ROOT / "examples"))
+    (ROOT / "build").mkdir(exist_ok=True)
+    ckpt = tempfile.mkdtemp(prefix="examples_train_small_",
+                            dir=ROOT / "build")
+    runs, total = [], Counter()
+    t_phase = time.perf_counter()
+    try:
+        for label, name, argv, kernels in EXAMPLE_RUNS:
+            argv = list(argv)
+            if name == "train_small_torch":
+                argv += ["--ckpt-dir", ckpt]
+            mod = importlib.import_module(name)
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            with (KeptKernelCalls(torch, ops) as kept,
+                  contextlib.redirect_stdout(sys.stderr)):
+                out = mod.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k: n for k, n in ops.launch_counts().items() if n}
+            total.update(launches)
+            row = {"run": label, "argv": argv, "wall_s": wall,
+                   "launches": launches}
+            idle = [k for k in kernels if not launches.get(k)]
+            check(not idle, f"examples: {label} never launched {idle}")
+            stray = sorted(set(launches) - set(kernels))
+            check(not stray, f"examples: {label} launched {stray}")
+            row["held"] = kept.hold(label)
+            unheld = {k: n for k, n in launches.items()
+                      if row["held"].get(k, {}).get("calls", 0) < n}
+            check(not unheld, f"examples: {label}: launches {unheld} but "
+                              f"calls kept {row['held']}")
+            if name == "train_small_torch":
+                hist = out["history"]
+                row.update(
+                    steps_run=out["steps_run"],
+                    resumed_from=out["resumed_from"],
+                    s_per_step=out["seconds"] / out["steps_run"],
+                    tokens_per_s=out["steps_run"] * out["tokens_per_step"]
+                    / out["seconds"],
+                    first_loss=[hist[0]["step"], hist[0]["loss"]],
+                    last_loss=[hist[-1]["step"], hist[-1]["loss"]],
+                    final_loss=out["final_loss"],
+                    first_grad_norm=hist[0]["grad_norm"],
+                    last_grad_norm=hist[-1]["grad_norm"])
+                check(np.isfinite(out["final_loss"]),
+                      f"examples: {label} loss {out['final_loss']}")
+                floor = float(np.log(mod.SMALL.vocab_size))
+                check(all(abs(h["loss"] - floor) < EXAMPLE_LOSS_BAND
+                          for h in hist),
+                      f"examples: {label} loss left ln(vocab) {floor:.4f} "
+                      f"+- {EXAMPLE_LOSS_BAND}: {hist}")
+                if label == "train_small":
+                    check(out["resumed_from"] == 0 and hist[0]["step"] == 1
+                          and hist[-1]["step"] == 100
+                          and hist[-1]["grad_norm"] < hist[0]["grad_norm"],
+                          f"examples: {label} did not start fresh with its "
+                          f"gradient norm falling from step 1 to 100: "
+                          f"{out['resumed_from']}, {hist}")
+                    row["moved"] = train_small_moved(torch, mod, ckpt)
+                    check(sorted(row["moved"]) == [50, 100] and all(
+                        m["least_tensor_change"] > 0
+                        for m in row["moved"].values()),
+                          f"examples: {label}: a parameter tensor did not "
+                          f"move from its start: {row['moved']}")
+                else:
+                    check(out["resumed_from"] == 100
+                          and out["steps_run"] == 20,
+                          f"examples: {label} resumed from "
+                          f"{out['resumed_from']}, ran {out['steps_run']}")
+            else:
+                row.update(served=out["served"], total=out["total"])
+                check(out["total"] > 0 and out["served"] == out["total"],
+                      f"examples: {label} served {out['served']} of "
+                      f"{out['total']}")
+            if "kv_transfers" in out:
+                row.update(kv_transfers=out["kv_transfers"],
+                           kv_bytes=out["kv_bytes"])
+                check(out["kv_transfers"] == EXAMPLE_PD_TRANSFERS,
+                      f"examples: {label} made {out['kv_transfers']} "
+                      f"hand-offs, not {EXAMPLE_PD_TRANSFERS}")
+            if "rejected" in out:
+                row["rejected"] = out["rejected"]
+            runs.append(row)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out = {"phase": "examples", "nvidia_smi": smi,
+           "wall_s": time.perf_counter() - t_phase, "runs": runs,
+           "launches": {k: total.get(k, 0) for k in ops.launch_counts()}}
+    emit(out)
+    return out
 
 
 def main() -> int:
@@ -3417,6 +3704,11 @@ def main() -> int:
     if "--dryrun" in sys.argv[1:]:
         model, _ = load("qwen7b")
         dryrun_phase(torch, dev, model, smi)
+        return 0
+
+    if "--examples" in sys.argv[1:]:
+        print(smi, flush=True)
+        examples_phase(torch, smi)
         return 0
 
     if "--paged-variants" in sys.argv[1:]:
@@ -3507,6 +3799,7 @@ def main() -> int:
           / decode["busy_ms"], "idle_share": decode["idle_share"]})
     del model
     torch.cuda.empty_cache()
+    examples = examples_phase(torch, smi)
 
     # launches: the main paths' runs, each with the counts set to 0 just
     # before it (the kernels phase's comparisons are not counted)
@@ -3515,7 +3808,8 @@ def main() -> int:
                   "mamba": mamba, "hybrid": hybrid, "hybrid_pd": hybrid_pd,
                   "feature_parity": feature_parity, "moe": moe_out,
                   "moe_pd": moe_pd, "hubert": hubert, "train": train,
-                  "train_pod": train_pod, "qwen32b": qwen32b, "dryrun": dry}
+                  "train_pod": train_pod, "qwen32b": qwen32b, "dryrun": dry,
+                  "examples": examples}
     csrc = "src/repro_torch/kernels/csrc"
     kernels = []
     for name, replaces in (

@@ -800,6 +800,16 @@ class Model(nn.Module):
                 for k in self.kinds]
 
 
+def seeded_model(cfg: ModelConfig, device=None, seed: int = 0, *,
+                 dtype=torch.float32) -> Model:
+    """``cfg``'s model on ``device`` (resolved as by ``Model``) with the
+    weights :meth:`Model.init` draws from a generator seeded with
+    ``seed``: what the examples serve, and what an engine-plane
+    ``Cluster`` given no ``seed_params`` draws from ``cfg.seed``."""
+    model = Model(cfg, dtype=dtype, device=device)
+    return model.init(torch.Generator(device=model.device).manual_seed(seed))
+
+
 def _block_axes(blk: nn.Module, prefix: str) -> dict:
     """Logical axes of one block's parameters, named ``prefix`` + their
     name in the block (JAX's ``_block_axes`` with no lead dim)."""

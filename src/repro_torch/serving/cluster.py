@@ -179,9 +179,9 @@ class Cluster:
     :func:`repro_torch.resolve_device`: CUDA unless the caller names
     another, raising without a card.  ``seed_params`` is a state dict
     in the port's names (e.g. ``convert.params_from_jax(tree, cfg)``);
-    None draws one with ``Model.init`` from a generator seeded with
-    ``cfg.seed`` (other numbers than the JAX package's for the same
-    seed).  ``dtype`` is the weights' (default: the seed's, else f32);
+    None draws one with ``models.build.seeded_model`` from ``cfg.seed``
+    (other numbers than the JAX package's for the same seed).
+    ``dtype`` is the weights' (default: the seed's, else f32);
     ``ckpt_dir`` holds the seed checkpoint the ``disk`` transport reads
     (default: a temporary directory)."""
 
@@ -316,7 +316,7 @@ class Cluster:
         import torch
 
         from repro_torch import resolve_device
-        from repro_torch.models.build import Model
+        from repro_torch.models import build
         from repro_torch.serving.engine import EngineConfig, InferenceEngine
         from repro_torch.serving.weights import WeightManager
 
@@ -337,10 +337,9 @@ class Cluster:
                 max_spec_len=self.cfg.max_spec_len,
             )
         if seed_params is None:
-            seed = Model(self.cfg.model, dtype=dtype or torch.float32,
-                         device=self.device)
-            seed.init(torch.Generator(device=self.device)
-                      .manual_seed(self.cfg.seed))
+            seed = build.seeded_model(self.cfg.model, self.device,
+                                      self.cfg.seed,
+                                      dtype=dtype or torch.float32)
         else:
             seed = replica_model(self.cfg.model, {
                 k: v.to(self.device, dtype or v.dtype)
