@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
-``build/kernels/``), then runs twenty phases, each printing a JSON
+``build/kernels/``), then runs twenty-one phases, each printing a JSON
 line (``hybrid`` and ``moe`` a second one for their hand-offs,
 ``parity`` one per model):
 
@@ -99,9 +99,32 @@ line (``hybrid`` and ``moe`` a second one for their hand-offs,
    75 GB.  TTFT, TPOT and attainment are read on the cluster's virtual
    clock, which overlaps the replicas' measured steps as if each had a
    card; ``makespan_over_wall`` says how far it ran ahead of this card.
+   Every live replica's weights and KV pool must lie on its
+   ``WeightManager.placement`` (``cuda:0``: the cluster is given that
+   card alone).
 8. ``cluster_pd`` — the same traffic on one prefill and one decode
    replica: every request finishes, the page gather runs twice per
-   hand-off (K and V pools), the prefill replica runs no C == 1 pass.
+   hand-off (K and V pools), the prefill replica runs no C == 1 pass,
+   every replica lies on its placement.
+8b. ``placement`` — replicas on two devices, the card and the host:
+   smoke-width qwen7b ``Cluster``s in f32 (TF32 off; the seed's weights
+   drawn on the host and given to each) on ``devices=[cuda:0, cpu]``
+   (replica ``wid`` on ``devices[wid % 2]``, as JAX's
+   ``WeightManager.placement``), each against the same cluster on
+   ``[cpu]``: P/D with the prefill replica on the card and the decode
+   replica on the host, and two colocated replicas with a live
+   migration of the card replica's residents to the host replica once
+   one of them has decoded 4 tokens.
+   Every request must finish with the ``[cpu]`` run's tokens (where one
+   differs, its top-2 logit margin is printed first), every replica lie
+   on its placement, the card replica launch the page gather twice per
+   hand-off and the paged decode kernel 2 times per C == 1 pass, the
+   host replica nothing, and each kernel call agree with its plain
+   version on its own inputs (2e-5, the gather exactly).  Then a d2d
+   provision from the card replica to a replica placed on the host,
+   bit for bit the donor's.  Prints ``cards`` (the visible cards), the
+   replica-to-device map and the card-to-host d2d wall time (the host
+   link, not NVLink).
 9. ``slot``    — gemma3-4b at full width in bf16 (random weights from a
    seed) serving 16 requests on the slot plane, which the engine picks
    by itself for its sliding-window layers: 12 Table-1 requests and 4
@@ -262,6 +285,10 @@ instead builds the kernels and runs only the ``dryrun`` phase.
 
 instead builds the kernels and runs only the ``examples`` phase.
 
+    python3 chip_smoke.py --placement
+
+instead builds the kernels and runs only the ``placement`` phase.
+
     python3 chip_smoke.py --profile
 
 instead traces, with ``torch.profiler``, one prefill step and two
@@ -315,6 +342,11 @@ PEAK_LIMIT_BYTES = 75e9
 ALONE_ENGINE = dict(n_slots=1, max_len=256, page_size=16, chunk_size=256,
                     decode_block=8)
 TRANSPORT_L_IN, TRANSPORT_L_OUT = 128, 16
+# placement phase: smoke-width clusters on the card and the host, f32
+PLACEMENT_ENGINE = dict(n_slots=4, max_len=64, prefill_batch=2, page_size=8,
+                        chunk_size=16)
+PLACEMENT_N, PLACEMENT_MIGRATE_L_OUT = 8, 16
+PLACEMENT_KICK_TOKENS = 4   # migrate once a card resident has decoded 4
 # prefix phase: chat traffic over shared system prompts
 PREFIX_N, PREFIX_GROUPS, PREFIX_LEN, PREFIX_SUFFIX, PREFIX_L_OUT = (
     16, 4, 1024, 64, 32)
@@ -2140,6 +2172,9 @@ def cluster_phase(torch, dev, phase: str) -> dict:
     check(len(live) >= 2,
           f"{phase}: {len(live)} replica(s) hold weights, fewer than 2 "
           f"(scale-outs {res.n_scale_out}, scale-ins {res.n_scale_in})")
+    placed = replicas_placed(cluster, phase)
+    check(set(placed.values()) == {str(dev)},
+          f"{phase}: replicas placed on {placed}, not {dev} alone")
 
     m = res.metrics
     ttft = np.array([r.ttft for r in reqs])
@@ -2188,12 +2223,204 @@ def cluster_phase(torch, dev, phase: str) -> dict:
         "n_dispatches": res.n_dispatches,
         "timeline": [(round(t, 4), wid, ev) for t, wid, ev in res.timeline],
         "transports": transports, "launches": launches,
-        "peak_mem_gb": peak / 1e9,
+        "peak_mem_gb": peak / 1e9, "placement": placed,
     }
     emit(out)
     del cluster, res, live
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def replicas_placed(cluster, phase: str) -> dict:
+    """Each live replica's ``WeightManager.placement``, after checking
+    that its weights, its engine and its KV pool lie there."""
+    placed = {}
+    for w in cluster.workers:
+        if w.engine.model is None:
+            continue
+        where = cluster.weights.placement(w.wid)
+        tensors = [*w.engine.model.parameters(),
+                   *(t for seg in w.engine.caches for t in seg.values())]
+        check(w.engine.device == where
+              and all(t.device == where for t in tensors),
+              f"{phase}: replica {w.wid}'s weights or KV pool left {where}")
+        placed[str(w.wid)] = str(where)
+    return placed
+
+
+# ---------------------------------------------------------------------------
+# phase 8b: replicas on the card and the host
+# ---------------------------------------------------------------------------
+
+
+def placement_requests(vocab: int, l_out=None) -> list:
+    from repro_torch.core.request import Request
+
+    rng = np.random.default_rng(SEED + 12)
+    reqs, t = [], 0.0
+    for i in range(PLACEMENT_N):
+        t += float(rng.exponential(0.05))
+        l_in = int(rng.integers(4, 14))
+        reqs.append(Request(
+            rid=i, task="chat" if i % 2 else "doc", arrival=t, l_in=l_in,
+            l_out=l_out or int(rng.integers(2, 6)), ttft_slo=5.0,
+            tpot_slo=2.0,
+            prompt=rng.integers(0, vocab, size=l_in).astype(np.int32)))
+    return reqs
+
+
+def placement_cluster(torch, layout: str, devices, seed_params):
+    """A smoke-width qwen7b ``Cluster`` in f32 over ``devices`` for
+    ``layout`` (``pd``, one prefill and one decode replica;
+    ``live_migration``, two colocated replicas), on ``seed_params``: a
+    seed's draw differs between the card's generator and the host's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.serving.cluster import Cluster, ClusterConfig
+    from repro_torch.serving.engine import EngineConfig
+
+    pd = layout == "pd"
+    kw = (dict(mode="pd", n_prefill=1, n_decode=1, policy="hyperflexis")
+          if pd else dict(n_workers=2, policy="rr", live_migration=True))
+    engine = dict(PLACEMENT_ENGINE, **({} if pd else {"decode_block": 2}))
+    cfg = ClusterConfig(model=get_smoke_config("qwen7b"), backend="engine",
+                        engine=EngineConfig(**engine), seed=SEED, **kw)
+    return Cluster(cfg, devices=devices, seed_params=seed_params,
+                   dtype=torch.float32)
+
+
+def placement_serve(torch, cluster, layout: str) -> tuple:
+    """Serve ``PLACEMENT_N`` requests on ``cluster``; on the
+    ``live_migration`` layout, replica 0's residents migrate live to
+    replica 1 once one of them has ``PLACEMENT_KICK_TOKENS`` tokens.
+    Returns (result, requests, wall s)."""
+    from repro_torch.core.request import RequestState
+    from repro_torch.core.scaler import ScaleAction
+    from repro_torch.serving.session import ServingSession
+
+    pd = layout == "pd"
+    reqs = placement_requests(cluster.cfg.model.vocab_size,
+                              None if pd else PLACEMENT_MIGRATE_L_OUT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if pd:
+        res = cluster.run(reqs)
+    else:
+        session = ServingSession(cluster, admission="none")
+        for r in reqs:
+            session.submit_request(r)
+        kicked = False
+        while cluster.process_next() is not None:
+            w0 = cluster._by_wid[0]
+            if not kicked and any(r.tokens_done >= PLACEMENT_KICK_TOKENS
+                                  for r in w0.running):
+                cluster._begin_evacuation(
+                    w0, ScaleAction("in", "collocated", 0.0, worker_id=0),
+                    cluster.now)
+                kicked = True
+            if (all(r.state == RequestState.FINISHED for r in reqs)
+                    and not cluster._evac):
+                break
+        check(kicked, "placement: replica 0 never held a decoding request")
+        res = session.close(requests=list(reqs))
+    torch.cuda.synchronize()
+    return res, reqs, time.perf_counter() - t0
+
+
+def placement_phase(torch) -> dict:
+    """Replicas on ``[cuda:0, cpu]`` against the same clusters on
+    ``[cpu]`` (module docstring, phase 8b)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.build import seeded_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    seed = seeded_model(get_smoke_config("qwen7b"), cpu, SEED)
+    out = {"phase": "placement", "cards": torch.cuda.device_count(),
+           "devices": [str(card), str(cpu)], "dtype": "float32"}
+    total, clusters = Counter(), {}
+    for layout in ("pd", "live_migration"):
+        ref_cluster = placement_cluster(torch, layout, [cpu],
+                                        seed.state_dict())
+        _, want, _ = placement_serve(torch, ref_cluster, layout)
+        # built (and warmed up on both devices) before the counts are
+        # set to 0: the run's launches are its replicas' alone
+        cluster = placement_cluster(torch, layout, [card, cpu],
+                                    seed.state_dict())
+        ops.reset_launch_counts()
+        with KeptKernelCalls(torch, ops) as kept:
+            res, reqs, wall = placement_serve(torch, cluster, layout)
+        launches = ops.launch_counts()
+        total.update(launches)
+        clusters[layout] = cluster
+        check(all(r.finish_time is not None
+                  and len(r.generated) == r.l_out for r in reqs),
+              f"placement {layout}: a request fell short")
+        got = [list(r.generated) for r in reqs]
+        ref_tokens = [list(r.generated) for r in want]
+        if got != ref_tokens:
+            gaps = divergences(torch, seed, [r.prompt for r in want], got,
+                               ref_tokens)
+            emit({"phase": "placement", "layout": layout,
+                  "divergences": gaps})
+        check(got == ref_tokens,
+              f"placement {layout}: tokens differ from the [cpu] run's")
+        # replica 0 of the live-migration layout is scaled in: only a
+        # live replica's tensors can be checked, every one's placement
+        placed = replicas_placed(cluster, f"placement {layout}")
+        replicas = {str(w.wid): str(cluster.weights.placement(w.wid))
+                    for w in cluster.workers}
+        check(replicas == {"0": str(card), "1": str(cpu)}
+              and placed.items() <= replicas.items(),
+              f"placement {layout}: replicas placed on {replicas}")
+        on_card = next(w.engine for w in cluster.workers if w.wid == 0)
+        handoffs = (res.kv_transfers if layout == "pd"
+                    else res.n_live_migrations)
+        check(handoffs > 0, f"placement {layout}: nothing handed off")
+        kv_bytes = (cluster.tl.kv_bytes_moved, ref_cluster.tl.kv_bytes_moved)
+        # a P/D hand-off moves the prompt's KV: the same bytes wherever
+        # the replicas lie (a live migration's depend on when it lands)
+        check(layout != "pd" or kv_bytes[0] == kv_bytes[1],
+              f"placement pd: {kv_bytes[0]} bytes handed off, the [cpu] "
+              f"run {kv_bytes[1]}")
+        want_launches = {
+            "page_gather": 2 * handoffs,
+            "paged_decode_attention": (cluster.cfg.model.n_layers
+                                       * c1_passes(on_card))}
+        check({k: n for k, n in launches.items() if n}
+              == {k: n for k, n in want_launches.items() if n},
+              f"placement {layout}: launches {launches}, not "
+              f"{want_launches} (the card replica's alone)")
+        held = kept.hold(f"placement {layout}")
+        unheld = {k: n for k, n in launches.items()
+                  if held.get(k, {}).get("calls", 0) < n}
+        check(not unheld, f"placement {layout}: launches {unheld} but "
+                          f"calls kept {held}")
+        out[layout] = {
+            "served": res.metrics.n_finished, "n_total": len(reqs),
+            "tokens_equal_cpu_run": True, "replicas": replicas,
+            "handoffs": handoffs, "kv_bytes": kv_bytes[0],
+            "kv_bytes_cpu_run": kv_bytes[1],
+            "c1_passes_on_card": c1_passes(on_card), "launches": launches,
+            "held": held, "wall_s": wall}
+    # d2d from the P/D cluster's card replica to a replica placed on the
+    # host
+    wm = clusters["pd"].weights
+    wid = next(w for w in range(1000, 1002) if wm.placement(w) == cpu)
+    donor = wm.params_of(0)
+    params, secs = wm.provision(wid, "d2d", donor=0)
+    check(all(t.device == cpu for t in params.values())
+          and all(torch.equal(params[k], t.cpu()) for k, t in donor.items()),
+          "placement: the card-to-host d2d copy differs from its donor")
+    wm.release(wid)
+    out["d2d_card_to_host"] = {
+        "s": secs, "gb": wm.nbytes / 1e9, "gb_per_s": wm.nbytes / secs / 1e9,
+        "bitwise_equal": True,
+        "link": "host link (PCIe), card to host memory; not NVLink"}
+    out["launches"] = {k: total.get(k, 0) for k in ops.launch_counts()}
+    emit(out)
     return out
 
 
@@ -3498,7 +3725,7 @@ class KeptKernelCalls:
                 dtypes.add(dtype)
                 dims.add(int(args[0].shape[-1]))
                 want = plain[name](*args, **kw)
-                what = f"examples {label}: {name} on {dtype} " \
+                what = f"{label}: {name} on {dtype} " \
                        f"{tuple(args[0].shape)}"
                 if name == "page_gather":
                     check(torch.equal(got, want), f"{what}: not exact")
@@ -3591,7 +3818,7 @@ def examples_phase(torch, smi: str) -> dict:
             check(not idle, f"examples: {label} never launched {idle}")
             stray = sorted(set(launches) - set(kernels))
             check(not stray, f"examples: {label} launched {stray}")
-            row["held"] = kept.hold(label)
+            row["held"] = kept.hold(f"examples {label}")
             unheld = {k: n for k, n in launches.items()
                       if row["held"].get(k, {}).get("calls", 0) < n}
             check(not unheld, f"examples: {label}: launches {unheld} but "
@@ -3711,6 +3938,11 @@ def main() -> int:
         examples_phase(torch, smi)
         return 0
 
+    if "--placement" in sys.argv[1:]:
+        print(smi, flush=True)
+        placement_phase(torch)
+        return 0
+
     if "--paged-variants" in sys.argv[1:]:
         emit(paged_variants(torch, dev))
         emit(paged_e2e(torch, dev))
@@ -3746,6 +3978,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     cluster = cluster_phase(torch, dev, "cluster")
     cluster_pd = cluster_phase(torch, dev, "cluster_pd")
+    placement = placement_phase(torch)
     model, init_s = load("gemma3-4b")
     slot = slot_phase(torch, dev, model, init_s)
     del model
@@ -3804,7 +4037,8 @@ def main() -> int:
     # launches: the main paths' runs, each with the counts set to 0 just
     # before it (the kernels phase's comparisons are not counted)
     main_paths = {"serve": serve, "pd": pd, "prefix": prefix, "spec": spec,
-                  "cluster": cluster, "cluster_pd": cluster_pd, "slot": slot,
+                  "cluster": cluster, "cluster_pd": cluster_pd,
+                  "placement": placement, "slot": slot,
                   "mamba": mamba, "hybrid": hybrid, "hybrid_pd": hybrid_pd,
                   "feature_parity": feature_parity, "moe": moe_out,
                   "moe_pd": moe_pd, "hubert": hubert, "train": train,

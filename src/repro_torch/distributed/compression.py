@@ -149,12 +149,19 @@ def pod_manual_value_and_grad(loss_fn, mesh, *, compress: bool = True,
     """Build a value_and_grad of ``loss_fn(params, batch)`` whose
     *pod-axis* gradient sync is manual (and optionally int8-compressed).
 
-    Each rank differentiates its pod's block of the batch; then the
-    gradients are synced over the ``pod`` group (:func:`sync_pod_grads`,
-    ``compress`` and ``leaves`` as there) and the loss is averaged over
-    the pods.  Parameters are pod-replicated: every rank passes the same
-    ``params``.  Without a ``pod`` dimension in the mesh this is the
-    plain value_and_grad.
+    Each rank differentiates its pod's whole block of the batch; then
+    the gradients are synced over the ``pod`` group
+    (:func:`sync_pod_grads`, ``compress`` and ``leaves`` as there) and
+    the loss is averaged over the pods.  Parameters are pod-replicated:
+    every rank passes the same ``params``.  On a mesh with ``data`` or
+    ``model`` > 1, those ranks of a pod compute the same block: JAX's
+    SPMD result inside the ``shard_map`` over ``pod``, computed
+    replicated, and so exact for any loss.  Splitting the block over
+    ``data`` with a mean over the data group would be exact only for a
+    plain mean over equal rows, not for a loss divided by each block's
+    own mask count (hubert) or MoE's balance loss and capacity.
+    Without a ``pod`` dimension in the mesh this is the plain
+    value_and_grad.
     """
     vg = value_and_grad(loss_fn)
     if "pod" not in (mesh.mesh_dim_names or ()):

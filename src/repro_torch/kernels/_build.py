@@ -211,15 +211,24 @@ def check_operands(floats: dict, ints: dict,
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def launch(name: str, *args, entry: Optional[str] = None) -> None:
+def launch(name: str, *args, entry: Optional[str] = None,
+           on: Optional[torch.Tensor] = None) -> None:
     """Call kernel ``name``'s C entry point (or its further ``entry`` of
     ``ENTRIES``), raise if the launch reported an error (cudaGetLastError
     right after the launch), else count it: one count per call, whatever
-    number of CUDA kernels the entry point runs."""
+    number of CUDA kernels the entry point runs.
+
+    The call runs with ``on``'s card current: an entry point launches on
+    the runtime's current device, and sets its kernels' attributes
+    there, so operands on another card than the current one would
+    otherwise meet a stream and a launch on the wrong card.  Every
+    wrapper passes an operand (``get_device`` is -1 on the CPU, where
+    this is no guard: only the tests' fake libraries are called so)."""
     if entry is not None and ENTRIES[entry][0] != name:
         raise ValueError(f"{entry} is not an entry point of {name}")
     fn = getattr(library(name), entry or SIGNATURES[name][0])
-    err = fn(*args)
+    with torch.cuda.device(-1 if on is None else on.get_device()):
+        err = fn(*args)
     if err != 0:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError_t {err}"

@@ -28,6 +28,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace attn {
 
 template <typename T>
@@ -263,6 +265,26 @@ int launch_merge(const void* ws, void* out, int b, int hq, int n_split,
   decode_merge_kernel<T, D><<<dim3(hq, b), D, 0, stream>>>(
       static_cast<const float*>(ws), static_cast<T*>(out), hq, n_split);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A kernel's dynamic shared memory limit is an attribute of the device
+// that is current at cudaFuncSetAttribute.  Sets it on the current device
+// unless `done` (the calling instance's own static: one bit a device)
+// says it is set there already, so each card pays the call once: a decode
+// pass launches these kernels once a layer, and the host's time per
+// launch is what the pass waits on.  Past device 63, on every call.
+template <typename Kernel>
+cudaError_t max_dynamic_smem_on_device(Kernel kernel, int bytes,
+                                       std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 }  // namespace attn

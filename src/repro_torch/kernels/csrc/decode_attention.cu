@@ -395,12 +395,11 @@ int launch(const void* q, const void* k, const void* v, const void* kv_len,
   if (stage_tokens < 1 || stage_tokens > kStageTokens)
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = decode_ring_kernel<T, D, NG>;
-  // once per instance, at the most any stage size takes (192 KB at f32
-  // D 256): a decode pass launches this kernel once a layer, and the
-  // host's time per launch is what the pass waits on
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes<T, D, NG>(kStageTokens)));
+  // once per instance and card, at the most any stage size takes (192 KB
+  // at f32 D 256)
+  static std::atomic<unsigned long long> attr_set{0};
+  const cudaError_t attr = max_dynamic_smem_on_device(
+      kernel, static_cast<int>(smem_bytes<T, D, NG>(kStageTokens)), attr_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const size_t smem = smem_bytes<T, D, NG>(stage_tokens);
   const int chunk = (S + n_split - 1) / n_split;

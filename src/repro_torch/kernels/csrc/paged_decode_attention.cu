@@ -486,10 +486,11 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
       !hk_host::tmap_bf16(&vm, v_pages, 2, dims, strides, box))
     return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = paged_group_kernel<D>;
-  // once per instance, at the most any stage or group takes
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes<D>(kMaxStageTokens, kMaxG)));
+  // once per instance and card, at the most any stage or group takes
+  static std::atomic<unsigned long long> attr_set{0};
+  const cudaError_t attr = max_dynamic_smem_on_device(
+      kernel, static_cast<int>(smem_bytes<D>(kMaxStageTokens, kMaxG)),
+      attr_set);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   kernel<<<dim3(n_split, hkv, b), kThreads,
            smem_bytes<D>(stage_tokens, group), stream>>>(

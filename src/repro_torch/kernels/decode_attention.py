@@ -183,7 +183,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, legacy: bool = False,
         _build.launch(
             "decode_attention", *args, ws.data_ptr(), out.data_ptr(),
             _build.DTYPE_CODE[q.dtype], b, hq, hkv, d, s, n_split, stream,
-            entry="decode_attention_split_launch",
+            entry="decode_attention_split_launch", on=q,
         )
         return out
     plan = decode_plan(b, hq, hkv, s, d, q.element_size(), split_tokens)
@@ -191,7 +191,7 @@ def decode_attention(q, k_cache, v_cache, kv_len, *, legacy: bool = False,
     _build.launch(
         "decode_attention", *args, ws.data_ptr(), out.data_ptr(),
         _build.DTYPE_CODE[q.dtype], b, hq, hkv, d, s, plan.n_split,
-        plan.heads_per_block, plan.stage_tokens, stream,
+        plan.heads_per_block, plan.stage_tokens, stream, on=q,
     )
     return out
 
@@ -232,8 +232,8 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_len, *,
             n_pages, ps, max_pages, plan.n_split)
     if plan.route == "split":
         _build.launch("paged_decode_attention", *args, stream,
-                      entry="paged_decode_attention_split_launch")
+                      entry="paged_decode_attention_split_launch", on=q)
     else:
         _build.launch("paged_decode_attention", *args, plan.chunk_pages,
-                      plan.stage_pages, stream)
+                      plan.stage_pages, stream, on=q)
     return out

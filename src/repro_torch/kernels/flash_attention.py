@@ -55,6 +55,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _build.DTYPE_CODE[q.dtype], b, hq, hkv, s, d, int(bool(causal)),
         int(window), stream,
-        entry="flash_attention_fma_launch" if fma else None,
+        entry="flash_attention_fma_launch" if fma else None, on=q,
     )
     return out

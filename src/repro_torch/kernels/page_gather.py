@@ -48,5 +48,6 @@ def page_gather(pages, page_ids) -> torch.Tensor:
         "page_gather",
         pages.data_ptr(), page_ids.data_ptr(), out.data_ptr(),
         n_l, n_pages, h, m, ps * d * pages.element_size(), stream,
+        on=pages,
     )
     return out

@@ -37,5 +37,6 @@ def rmsnorm(x, scale, *, eps: float = 1e-5) -> torch.Tensor:
         return out
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _build.launch("rmsnorm", x.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                  _build.DTYPE_CODE[x.dtype], rows, d, float(eps), stream)
+                  _build.DTYPE_CODE[x.dtype], rows, d, float(eps), stream,
+                  on=x)
     return out

@@ -73,8 +73,8 @@ def ssd(x, dt, a, b_mat, c_mat, *, chunk: int = 256, fma: bool = False):
         ws = torch.empty(bsz * s * TC_CHUNK, dtype=torch.float32,
                          device=x.device)
         _build.launch("ssd", *ptrs, ws.data_ptr(), bsz, s, h, p, n, stream,
-                      entry="ssd_tc_launch")
+                      entry="ssd_tc_launch", on=x)
     else:
         _build.launch("ssd", *ptrs, _build.DTYPE_CODE[x.dtype], bsz, s, h,
-                      p, n, chunk, stream)
+                      p, n, chunk, stream, on=x)
     return y, state

@@ -27,8 +27,10 @@ A copy of ``repro/serving/cluster.py`` (the port imports nothing from
 the JAX package), line for line except the engine plane's set-up —
 ``_init_engine_plane`` and the engine branch of ``_make_worker`` — which
 is rewritten for the port: each replica is its own ``Model`` holding the
-tensors its transport provisioned, on the device the constructor
-resolves (CUDA unless the caller passes ``device="cpu"``).
+tensors its transport provisioned, on the device its ``WeightManager``
+places it on (round-robin over the devices the constructor resolves, as
+JAX's over ``jax.devices()``: every visible card unless the caller
+names a device or passes ``devices=``).
 """
 
 from __future__ import annotations
@@ -174,10 +176,16 @@ class ClusterResult:
 
 
 class Cluster:
-    """``device``, ``seed_params``, ``dtype`` and ``ckpt_dir`` are read
-    only on the engine plane.  ``device`` is resolved by
-    :func:`repro_torch.resolve_device`: CUDA unless the caller names
-    another, raising without a card.  ``seed_params`` is a state dict
+    """``device``, ``devices``, ``seed_params``, ``dtype`` and
+    ``ckpt_dir`` are read only on the engine plane.  ``device`` is
+    resolved by :func:`repro_torch.resolve_device`: CUDA unless the
+    caller names another, raising without a card.  Replicas round-robin
+    over a list of devices (``WeightManager.placement``): ``devices`` if
+    given (a port-only keyword; it may mix cards and the CPU), else
+    every visible card for a CUDA ``device`` without an index (JAX's
+    ``jax.devices()``), else ``device`` alone; the default never adds
+    the CPU beside a card.  The seed's weights are drawn on the list's
+    first device.  ``seed_params`` is a state dict
     in the port's names (e.g. ``convert.params_from_jax(tree, cfg)``);
     None draws one with ``models.build.seeded_model`` from ``cfg.seed``
     (other numbers than the JAX package's for the same seed).
@@ -185,7 +193,7 @@ class Cluster:
     ``ckpt_dir`` holds the seed checkpoint the ``disk`` transport reads
     (default: a temporary directory)."""
 
-    def __init__(self, cfg: ClusterConfig, *, device=None,
+    def __init__(self, cfg: ClusterConfig, *, device=None, devices=None,
                  seed_params=None, dtype=None,
                  ckpt_dir: Optional[str] = None):
         if cfg.backend not in ("sim", "engine"):
@@ -216,7 +224,8 @@ class Cluster:
                 capacity_pages=cfg.prefix_cache_pages,
             )
         if cfg.backend == "engine":
-            self._init_engine_plane(device, seed_params, dtype, ckpt_dir)
+            self._init_engine_plane(device, devices, seed_params, dtype,
+                                    ckpt_dir)
         else:
             self.truth = AnalyticLatencyModel(cfg.model, cfg.hw, tp=cfg.tp)
             self.fitted = FittedLatencyModel.from_profile(
@@ -306,21 +315,21 @@ class Cluster:
         )
 
     # -- setup -----------------------------------------------------------------
-    def _init_engine_plane(self, device, seed_params, dtype,
+    def _init_engine_plane(self, device, devices, seed_params, dtype,
                            ckpt_dir: Optional[str]) -> None:
         """Draw (or take) the seed weights, hand them to the
-        WeightManager as provisioning source material, and warm up; the
-        shared FittedLatencyModel doubles as every engine's profiler,
-        so the paper's Appendix-A path (measure -> fit -> budget) runs
-        on real step times."""
+        WeightManager as provisioning source material, and warm up each
+        device replicas are placed on; the shared FittedLatencyModel
+        doubles as every engine's profiler, so the paper's Appendix-A
+        path (measure -> fit -> budget) runs on real step times."""
         import torch
 
-        from repro_torch import resolve_device
         from repro_torch.models import build
-        from repro_torch.serving.engine import EngineConfig, InferenceEngine
+        from repro_torch.serving.engine import EngineConfig
         from repro_torch.serving.weights import WeightManager
 
-        self.device = resolve_device(device)
+        self.devices = placed_devices(device, devices)
+        self.device = self.devices[0]
         self._engine_cfg = self.cfg.engine or EngineConfig()
         if self.cfg.prefix_cache:
             # cluster-level opt-in overrides the engine config: every
@@ -349,11 +358,12 @@ class Cluster:
         # engine below) — every replica gets its OWN tensors via a real
         # Table-2 transport, and scale-out measures the move
         self.weights = WeightManager(seed.state_dict(), tl=self.tl,
-                                     ckpt_dir=ckpt_dir)
+                                     ckpt_dir=ckpt_dir, devices=self.devices)
         self.truth = None
         self._kv_cap = 0
         self.fitted = FittedLatencyModel()
-        if self.device.type == "cuda":
+        cards = [d for d in dict.fromkeys(self.devices) if d.type == "cuda"]
+        if cards:
             # build (or load) every kernel library now: nvcc at first
             # use would otherwise land inside a measured step — the
             # page gather, say, inside the first P/D hand-off
@@ -361,11 +371,28 @@ class Cluster:
 
             for name in _build.SIGNATURES:
                 _build.library(name)
-        # warm up with a throwaway engine and a DETACHED profiler: the
-        # first launches, cuBLAS's and the allocator's set-up must
-        # pollute neither the run's virtual clock (every queued
-        # request's TTFT) nor the Eq. 5 fit the Dispatcher budgets with
-        warm = InferenceEngine(seed, self._engine_cfg,
+        # warm up with a throwaway engine and a DETACHED profiler on
+        # each device a replica may land on: a card's first launches,
+        # cuBLAS's and the allocator's set-up must pollute neither the
+        # run's virtual clock (every queued request's TTFT) nor the
+        # Eq. 5 fit the Dispatcher budgets with
+        for dev in dict.fromkeys(self.devices):
+            self._warm_up(seed if dev == self.device else replica_model(
+                self.cfg.model, {k: v.to(dev)
+                                 for k, v in seed.state_dict().items()}))
+        # the seed must not stay on the device: beside the replicas and
+        # their KV pools it would not fit one card at full width
+        del seed
+        if cards:
+            torch.cuda.empty_cache()
+
+    def _warm_up(self, model) -> None:
+        """Serve one tiny request and run the fused decode blocks on a
+        throwaway engine over ``model``; raise where the cluster's mode
+        needs the paged plane and this model/config falls back."""
+        from repro_torch.serving.engine import InferenceEngine
+
+        warm = InferenceEngine(model, self._engine_cfg,
                                profiler=FittedLatencyModel())
         if self.cfg.mode == "pd" and not warm.paged:
             raise ValueError(
@@ -390,11 +417,6 @@ class Cluster:
         # the fused decode blocks (one per power-of-two K bucket): a
         # tiny warm request never reaches K > 1
         warm.warm_decode_blocks()
-        # the seed must not stay on the device: beside the replicas and
-        # their KV pools it would not fit one card at full width
-        del warm, seed
-        if self.device.type == "cuda":
-            torch.cuda.empty_cache()
 
     def _make_worker(self, wid: int, role: str, active: bool = True,
                      strategy: str = "cpu",
@@ -1079,6 +1101,28 @@ class Cluster:
                 else:
                     self._push(now + a.delay, "role_flip",
                                (w.wid, a.role))
+
+
+def placed_devices(device=None, devices=None) -> list:
+    """The devices an engine-plane ``Cluster``'s replicas round-robin
+    over: ``devices`` if given; else, for a CUDA ``device`` without an
+    index (the default), every visible card, as JAX's ``jax.devices()``;
+    else ``device`` alone (:func:`repro_torch.resolve_device`, raising
+    where CUDA is asked for and absent)."""
+    import torch
+
+    from repro_torch import resolve_device
+
+    if devices is not None:
+        out = [resolve_device(d) for d in devices]
+        if not out:
+            raise ValueError("devices lists no device")
+        return out
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
 
 
 def replica_model(model_cfg: ModelConfig, params: dict):

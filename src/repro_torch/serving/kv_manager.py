@@ -354,10 +354,12 @@ def scatter_slot_kv(caches, axes, slot: int, page_ids: torch.Tensor,
     place: each contiguous (L, H, T, D) leaf is padded to the
     destination's page multiple and copied into the pool's ``page_ids``
     (the destination allocator's choice); each per-slot row lands in row
-    ``slot``."""
+    ``slot``.  A payload exported on another device is moved onto the
+    destination's first, leaf by leaf."""
     ids = page_ids.long()
 
     def put(leaf, ax, seq):
+        seq = seq.to(leaf.device)
         if ax is not None:
             leaf.select(ax, slot).copy_(seq)
             return leaf

@@ -11,20 +11,28 @@ transport.
 
 :class:`WeightManager` is that ownership registry plus the three
 Table-2 transports, each producing a ``state_dict``-shaped dict of
-tensors on the replicas' device that shares no storage with its source:
+tensors on the replica's device that shares no storage with its source:
 
-- ``d2d``  — a copy on the device from a live donor replica's tensors
-  (``torch.empty_like`` + ``copy_``); from a donor on another device,
-  ``.to(device)``.
+- ``d2d``  — a copy from a live donor replica's tensors: on the device
+  (``torch.empty_like`` + ``copy_``) when the donor lies there, else
+  ``.to(device)``, card to card (a peer copy where the cards have one)
+  or between a card and the host.
 - ``cpu``  — a copy from the host offload of the seed weights made at
-  init (page-locked when the replicas live on a card, so the copy runs
+  init (page-locked when a replica may live on a card, so the copy runs
   at the host link's rate).
 - ``disk`` — a load of the seed checkpoint written at init through
   :mod:`repro_torch.distributed.checkpoint` (the scale-from-zero path:
   it needs no live donor and no warm host copy).
 
-Every provision is timed on the wall clock after
-``torch.cuda.synchronize()`` (``block_until_ready`` in JAX) and
+Placement is JAX's: replica ``wid`` lands on ``devices[wid %
+len(devices)]`` (JAX's ``jax.devices()``; here the manager's
+``devices``, by default the seed's device alone, so one device holds
+every replica).  JAX's other branch, a replica spanning a group of
+devices under a sharding-rules context, has no counterpart: JAX's
+``Cluster`` never enters one.
+
+Every provision is timed on the wall clock between synchronizations of
+the donor's and the target's cards (``block_until_ready`` in JAX) and
 reported to the :class:`~repro_torch.core.tlmanager.TLManager`, whose
 ``weight_load_time`` then predicts from *observed* bandwidth — the
 Scaler's Algorithm-3 tick picks the provisioning path from measured,
@@ -35,7 +43,7 @@ from __future__ import annotations
 
 import tempfile
 import time
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 import torch
 
@@ -59,6 +67,13 @@ def _owned_copy(x: torch.Tensor, device: torch.device) -> torch.Tensor:
     return torch.empty_like(x).copy_(x)
 
 
+def _synchronize(*devices: torch.device) -> None:
+    """Wait for the work queued on each card among ``devices``."""
+    for dev in set(devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
 class WeightManager:
     """Owns the per-replica weights of one served model.
 
@@ -66,18 +81,22 @@ class WeightManager:
     (host offload + disk checkpoint) — replicas never alias it; every
     ``provision``/``adopt`` hands a replica its own tensors, and
     ``release`` drops them (scale-in reclaims the copy's memory).
-    Replicas land on the seed's device.
+    ``devices`` lists where replicas may land (:meth:`placement`); by
+    default the seed's device alone.
     """
 
     def __init__(self, seed_params: Mapping[str, torch.Tensor], tl=None,
-                 ckpt_dir: Optional[str] = None):
+                 ckpt_dir: Optional[str] = None,
+                 devices: Optional[Sequence[torch.device]] = None):
         self._owned: dict[int, Params] = {}
         self.tl = tl
         self.device = next(iter(seed_params.values())).device
+        self.devices = ([torch.device(d) for d in devices] if devices
+                        else [self.device])
         # "cpu" source: host-resident offload of the seed.  A real copy
         # into fresh host memory — ``tensor.cpu()`` of a CPU tensor is
         # the tensor itself, and the "offload" would alias the seed
-        pin = self.device.type == "cuda"
+        pin = any(d.type == "cuda" for d in self.devices)
         self.host: Params = {
             k: torch.empty(v.shape, dtype=v.dtype, device="cpu",
                            pin_memory=pin).copy_(v)
@@ -119,6 +138,13 @@ class WeightManager:
         reclaimable (and it stops being a d2d donor candidate)."""
         self._owned.pop(wid, None)
 
+    # -- placement -------------------------------------------------------------
+    def placement(self, wid: int) -> torch.device:
+        """The device replica ``wid``'s weights land on: replicas
+        round-robin over ``devices``, as JAX's over ``jax.devices()``
+        (with one device, that device: JAX's None, the seed's)."""
+        return self.devices[wid % len(self.devices)]
+
     # -- Table-2 transports ----------------------------------------------------
     def provision(self, wid: int, strategy: str,
                   donor: Optional[int] = None) -> tuple[Params, float]:
@@ -126,16 +152,15 @@ class WeightManager:
         ``strategy``; returns ``(params, measured_seconds)``.
 
         The measured wall time is reported to the TLManager so the
-        Scaler's next cost query predicts from observed bandwidth.
+        Scaler's next cost query predicts from observed bandwidth.  The
+        weights land on :meth:`placement` of ``wid``.
         """
         if strategy not in STRATEGIES:
             raise ValueError(f"unknown weight strategy {strategy!r}")
         if wid in self._owned:
             raise ValueError(f"replica {wid} already owns its weights")
-        dev = self.device
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)   # nothing earlier in the window
-        t0 = time.perf_counter()
+        dev = self.placement(wid)
+        src = ()
         if strategy == "d2d":
             if donor is None or donor not in self._owned:
                 raise ValueError(
@@ -143,6 +168,10 @@ class WeightManager:
                     f"donor (have {sorted(self._owned)}, got {donor!r}); "
                     f"scale-from-zero must fall back to 'disk'"
                 )
+            src = (next(iter(self._owned[donor].values())).device,)
+        _synchronize(dev, *src)   # nothing earlier in the window
+        t0 = time.perf_counter()
+        if strategy == "d2d":
             params = {k: _owned_copy(v, dev)
                       for k, v in self._owned[donor].items()}
         elif strategy == "cpu":
@@ -152,8 +181,7 @@ class WeightManager:
         else:  # disk
             params, _ = load_checkpoint(self.ckpt_dir, 0, self.host,
                                         device=dev)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
+        _synchronize(dev, *src)
         dt = time.perf_counter() - t0
         self._owned[wid] = params
         if self.tl is not None:
