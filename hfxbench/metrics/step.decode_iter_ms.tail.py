@@ -1,0 +1,3 @@
+"""Summed span of the decode steps over their iterations (tail cells)."""
+
+from hfxbench.measures import decode_iter_ms as read  # noqa: F401
