@@ -68,6 +68,11 @@ all-frozen verify pass per power-of-two proposal width up to
 ``max_spec_len``, outputs discarded, as the JAX engine compiles them:
 the cluster calls it on a throwaway engine so that the first kernel
 launches, cuBLAS's and the allocator's set-up land in no measured step.
+
+With the span recorder of ``serving/tracing.py`` on, each ``step()``
+records its schedule, dispatch, sync and commit at the stamps the
+profiler's ``dt`` is taken from (``_timed``), and each request its time
+in the queue; off, a step pays one flag test.
 """
 
 from __future__ import annotations
@@ -98,6 +103,7 @@ from repro_torch.serving.spec_decode import (
     SpecConfig,
     slo_spec_len,
 )
+from repro_torch.serving import tracing
 
 
 @dataclasses.dataclass
@@ -227,6 +233,10 @@ class InferenceEngine:
         self.spec_depth_hist: dict[int, int] = {}  # pad width -> n
         # per-task acceptance stats (the SLO tiers differ by task)
         self.spec_task_stats: dict[str, dict] = {}
+        # the recorder's spans (serving/tracing.py): this engine's id and
+        # the open step's trace, None while the recorder is off
+        self.trace_id = tracing.new_engine_id()
+        self._trace: Optional[tracing.StepTrace] = None
         if cfg.spec_decode:
             self._spec_cfg = SpecConfig(max_spec_len=cfg.max_spec_len)
             self.drafter = NGramDrafter(
@@ -248,6 +258,39 @@ class InferenceEngine:
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
+
+    def _timed(self, call, lanes: int, **attrs):
+        """One dispatch: ``call()`` (the model call, its arguments'
+        uploads included), then the wait for the device.  Returns its
+        outputs and ``dt``, the seconds between the two stamps the Eq. 5
+        profiler reads.  The recorder's open step, if any, takes those
+        stamps and the call's return as its dispatch and sync, after
+        ``t1``; ``lanes`` and ``attrs`` go on its dispatch span.  Only
+        the return's stamp, and under a recording profiler the switch of
+        ``record_function`` ranges, fall inside ``dt``."""
+        tr = self._trace
+        noted = tr is not None and tr.notes is not None
+        t0 = time.perf_counter()
+        if noted:
+            tr.switch("engine.dispatch")
+        out = call()
+        if tr is not None:
+            back = tracing.now()
+            if noted:
+                tr.switch("engine.sync")
+        self._sync()
+        t1 = time.perf_counter()
+        if tr is not None:
+            if noted:
+                tr.switch("engine.commit")
+            tr.dispatched(t0, back, t1, dict(lanes=int(lanes), **attrs))
+        return out, t1 - t0
+
+    def _trace_queue(self, rid: int, opens: bool) -> None:
+        """Request ``rid`` enters (``opens``) or leaves this engine's
+        queue: the recorder's ``request.queue`` span."""
+        if tracing.RECORDER.on:
+            tracing.RECORDER.queue(self.trace_id, rid, opens, self._trace)
 
     def kv_token_capacity(self) -> int:
         """Token capacity of this engine's KV plane."""
@@ -291,11 +334,24 @@ class InferenceEngine:
         req.admit_seq = self._seq
         self._seq += 1
         self.queue.append(req)
+        self._trace_queue(req.rid, opens=True)
 
     # -- one engine step ------------------------------------------------------
     def step(self) -> dict:
         """Run one prefill (chunk) or one decode dispatch; returns event
         info (``kind``: prefill_chunk | prefill | decode | idle)."""
+        tr = self._trace = tracing.begin(self.trace_id)
+        if tr is None:
+            return self._step()
+        ev = None
+        try:
+            ev = self._step()
+            return ev
+        finally:
+            self._trace = None
+            tr.end(ev)
+
+    def _step(self) -> dict:
         if self.paged:
             return self._step_paged()
         admitted = self._admit()
@@ -361,6 +417,7 @@ class InferenceEngine:
             r.state = RequestState.PREFILLING
             self.prefilling[s] = r
             self._rid_slot[r.rid] = s
+            self._trace_queue(r.rid, opens=False)
         if not self.prefilling:
             return None
         budget = self._chunk_budget(force)
@@ -395,13 +452,18 @@ class InferenceEngine:
             start[s] = r.prefill_progress
             lens[s] = t
 
-        t0 = time.perf_counter()
-        logits, self.caches = self.model.chunk_step(
-            self.caches, self.kv.device_table(), self._tensor(tokens),
-            self._tensor(start), self._tensor(lens),
-        )
-        self._sync()
-        dt = time.perf_counter() - t0
+        attrs = {}
+        if self._trace is not None:
+            # every lane scores the table's whole width of key positions
+            attrs = {"pairs": tokens.size * self.kv.max_pages * cfg.page_size,
+                     "pairs_needed": int(sum(
+                         t * int(start[s]) + t * (t + 1) // 2
+                         for s, t in takes.items()))}
+        (logits, self.caches), dt = self._timed(
+            lambda: self.model.chunk_step(
+                self.caches, self.kv.device_table(), self._tensor(tokens),
+                self._tensor(start), self._tensor(lens)),
+            lanes=tokens.size, **attrs)
         nxt = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
         self.clock += dt
         self.n_dispatches += 1
@@ -451,6 +513,7 @@ class InferenceEngine:
         r = self.active.pop(v, None) or self.prefilling.pop(v)
         self._rid_slot.pop(r.rid, None)
         self._release_slot(v)
+        self._trace_queue(r.rid, opens=True)
         if r.generated:
             r.prompt = np.concatenate([
                 np.asarray(r.prompt, np.int32),
@@ -735,14 +798,12 @@ class InferenceEngine:
 
         last_d, pos_d = self._device_state()
         eos = -1 if cfg.eos_token is None else cfg.eos_token
-        t0 = time.perf_counter()
-        (toks, valid, last_f, pos_f), self.caches = (
-            self.model.spec_decode_block(
+        ((toks, valid, last_f, pos_f), self.caches), dt = self._timed(
+            lambda: self.model.spec_decode_block(
                 self.caches, self.kv.device_table(), last_d, pos_d,
                 self._tensor(alive), self._tensor(rem), eos, cfg.max_len,
-                self._tensor(props), self._tensor(prop_lens), k=kpad))
-        self._sync()
-        dt = time.perf_counter() - t0
+                self._tensor(props), self._tensor(prop_lens), k=kpad),
+            lanes=cfg.n_slots * (kpad + 1))
         tk = toks.cpu().numpy()    # (n_slots, kpad+1)
         vd = valid.cpu().numpy()   # (n_slots, kpad+1) bool
         self.clock += dt
@@ -815,16 +876,15 @@ class InferenceEngine:
         eos = -1 if cfg.eos_token is None else cfg.eos_token
         state = (last_d, pos_d, self._tensor(alive), self._tensor(rem), eos,
                  cfg.max_len)
-        t0 = time.perf_counter()
-        if self.paged:
-            out, self.caches = self.model.decode_block(
-                self.caches, self.kv.device_table(), *state, k=k)
-        else:
-            out, self.caches = self.model.decode_block_slots(
-                self.caches, *state, k=k)
-        toks, valid, last_f, pos_f = out
-        self._sync()
-        dt = time.perf_counter() - t0
+
+        def call():
+            if self.paged:
+                return self.model.decode_block(
+                    self.caches, self.kv.device_table(), *state, k=k)
+            return self.model.decode_block_slots(self.caches, *state, k=k)
+
+        ((toks, valid, last_f, pos_f), self.caches), dt = self._timed(
+            call, lanes=cfg.n_slots * k)
         tk = toks.cpu().numpy()    # (n_slots, K)
         vd = valid.cpu().numpy()   # (n_slots, K) bool
         self.clock += dt
@@ -888,14 +948,12 @@ class InferenceEngine:
         lens = np.zeros((cfg.n_slots,), np.int32)
         for s in self.active:
             lens[s] = 1  # the new token lands at position pos[s]
-        t0 = time.perf_counter()
-        logits, self.caches = self.model.chunk_step(
-            self.caches, self.kv.device_table(),
-            self._tensor(self.last_token[:, None]), self._tensor(self.pos),
-            self._tensor(lens),
-        )
-        self._sync()
-        dt = time.perf_counter() - t0
+        (logits, self.caches), dt = self._timed(
+            lambda: self.model.chunk_step(
+                self.caches, self.kv.device_table(),
+                self._tensor(self.last_token[:, None]),
+                self._tensor(self.pos), self._tensor(lens)),
+            lanes=cfg.n_slots)
         nxt = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
         self.clock += dt
         self.profiler.observe_decode(
@@ -930,6 +988,7 @@ class InferenceEngine:
             take = out
         for r in take:
             self.queue.remove(r)
+            self._trace_queue(r.rid, opens=False)
         return take
 
     @staticmethod
@@ -950,11 +1009,10 @@ class InferenceEngine:
         for i, r in enumerate(reqs):
             tokens[i, : len(r.prompt)] = r.prompt
             lens[i] = len(r.prompt)
-        t0 = time.perf_counter()
-        logits, cache = self.model.prefill(
-            self._tensor(tokens), self._tensor(lens), cache_len=self.cfg.max_len)
-        self._sync()
-        dt = time.perf_counter() - t0
+        (logits, cache), dt = self._timed(
+            lambda: self.model.prefill(self._tensor(tokens), self._tensor(lens),
+                                       cache_len=self.cfg.max_len),
+            lanes=tokens.size, tokens=int(lens.sum()))
         next_tokens = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
         self.clock += dt
         self.n_dispatches += 1
@@ -989,11 +1047,11 @@ class InferenceEngine:
         k = self._decode_block_k()
         if k > 1:
             return self._decode_block_step(k)
-        t0 = time.perf_counter()
-        logits, self.caches = self.model.decode_step(
-            self.caches, self._tensor(self.last_token), self._tensor(self.pos))
-        self._sync()
-        dt = time.perf_counter() - t0
+        (logits, self.caches), dt = self._timed(
+            lambda: self.model.decode_step(
+                self.caches, self._tensor(self.last_token),
+                self._tensor(self.pos)),
+            lanes=self.cfg.n_slots)
         nxt = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
         self.clock += dt
         self.profiler.observe_decode(
@@ -1056,7 +1114,11 @@ class InferenceEngine:
         return self.finished[mark:]
 
     def fit_profiler(self) -> bool:
-        return self.profiler.fit(min_samples=4)
+        tr = tracing.begin(self.trace_id, "engine.fit_profiler", parts=False)
+        fitted = self.profiler.fit(min_samples=4)
+        if tr is not None:
+            tr.end(None)
+        return fitted
 
     def release_weights(self) -> None:
         """Drop this replica's model (scale-in) so its device memory is
