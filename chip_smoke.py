@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (into
-``build/kernels/``), then runs twenty-one phases, each printing a JSON
+``build/kernels/``), then runs twenty-two phases, each printing a JSON
 line (``hybrid`` and ``moe`` a second one for their hand-offs,
 ``parity`` one per model):
 
@@ -47,9 +47,23 @@ line (``hybrid`` and ``moe`` a second one for their hand-offs,
    version on the same inputs with those positions zeroed).
 3. ``serve``   — qwen7b at full width in bf16 (weights drawn on the card
    from a seeded generator) serving 16 Table-1 requests through the
-   paged engine; every request must finish with its ``l_out`` tokens
-   and the paged decode-attention kernel must have run 32 times per
-   C == 1 forward pass.
+   paged engine; every request must finish with its ``l_out`` tokens,
+   the paged decode-attention kernel must have run 32 times per
+   C == 1 forward pass and the paged KV write 32 times per paged
+   ``chunk_step`` (prefill chunk or decode iteration).
+3b. ``decode_graph`` — on the same model, the engine's decode graph
+   (every paged decode iteration replayed from one captured CUDA graph)
+   against the forced-eager path: 8 requests (prompts of 64 to 900
+   tokens, 72 output tokens each) served both ways must give identical
+   tokens and launch counts over at least 64 decode iterations, every
+   iteration of the graph engine replayed.  Then one K == 1 iteration
+   of 8 rows at ~520 positions, both ways in turns: its host time (the
+   dispatch's enqueue), its wall time (the profiler's ``dt``) and its
+   device time (the kernels' durations from ``torch.profiler``, which
+   must see the replayed kernels), and the paged KV write at the decode
+   pass's and at a prefill chunk's shape against its bound and its
+   plain version (bitwise equal).  ``python3 chip_smoke.py
+   --decode-graph`` runs this phase alone (with the kernels' build).
 4. ``pd``      — one request prefilled on engine A, exported, evicted and
    imported into engine B: tokens identical to the colocated run, the
    payload size as predicted, the page-gather kernel launched.
@@ -236,7 +250,8 @@ line (``hybrid`` and ``moe`` a second one for their hand-offs,
    then ``--steps 120`` on it.  The examples' own lines go to stderr.
    Each run has the counts set to 0 just before it: every request must
    be served, the kernels of its path (``EXAMPLE_RUNS``) launched and no
-   other, and every kernel call of the run agree with the plain version
+   other, and every kernel call of the run (decoded eagerly here: a
+   replayed graph calls no Python) agree with the plain version
    on that call's own inputs (f32 at D 16 here: the paged split, the
    CUDA-core flash and the contiguous decode instances, which the
    kernels phase does not reach; 2e-5, the gather exactly); the P/D run
@@ -385,9 +400,11 @@ DRYRUN_SHARE_MAX = 1.05
 # routes (no kernel has a backward).
 E2E_ARGS = ("--n-requests", "12", "--slots", "4")
 EXAMPLE_RUNS = (
-    ("quickstart", "quickstart_torch", (), ("paged_decode_attention",)),
+    ("quickstart", "quickstart_torch", (),
+     ("paged_decode_attention", "paged_kv_write")),
     ("serve_engine_e2e qwen7b", "serve_engine_e2e_torch",
-     ("--arch", "qwen7b", *E2E_ARGS), ("paged_decode_attention",)),
+     ("--arch", "qwen7b", *E2E_ARGS),
+     ("paged_decode_attention", "paged_kv_write")),
     ("serve_engine_e2e gemma3-4b", "serve_engine_e2e_torch",
      ("--arch", "gemma3-4b", *E2E_ARGS),
      ("flash_attention", "decode_attention")),
@@ -395,10 +412,10 @@ EXAMPLE_RUNS = (
      ("--arch", "mamba2-2.7b", *E2E_ARGS), ()),
     ("pd_disaggregated engine", "pd_disaggregated_torch",
      ("--backend", "engine", "--smoke"),
-     ("paged_decode_attention", "page_gather")),
+     ("paged_decode_attention", "page_gather", "paged_kv_write")),
     ("pd_disaggregated sim", "pd_disaggregated_torch", ("--smoke",), ()),
     ("online_serving", "online_serving_torch", ("--smoke",),
-     ("paged_decode_attention",)),
+     ("paged_decode_attention", "paged_kv_write")),
     ("train_small", "train_small_torch", ("--steps", "100"), ()),
     ("train_small resume", "train_small_torch", ("--steps", "120"), ()),
 )
@@ -413,6 +430,10 @@ EXAMPLE_LOSS_BAND = 0.05
 # version on the same inputs, at the kernels phase's rtol = atol for
 # the call's dtype, the gather exactly
 EXAMPLE_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# decode_graph phase: 8 requests served with and without the decode
+# graph; then K == 1 iterations of 8 rows at GRAPH_TIME_L_IN positions
+GRAPH_N, GRAPH_L_IN, GRAPH_L_OUT = 8, (64, 900), 72
+GRAPH_TIME_L_IN, GRAPH_TIME_STEPS = 512, 16
 
 
 def emit(obj) -> None:
@@ -1502,6 +1523,17 @@ def c1_passes(engine) -> int:
     return sum(k * n for k, n in engine.decode_block_hist.items())
 
 
+PAGED_KERNELS = ("paged_decode_attention", "paged_kv_write")
+
+
+def paged_passes(engine) -> int:
+    """Paged ``chunk_step`` passes the engine ran, each of which writes
+    K/V once per attention layer: a C == 1 pass per decode iteration,
+    and one per other dispatch (a prefill chunk or a verify pass)."""
+    return (c1_passes(engine) + engine.n_dispatches
+            - sum(engine.decode_block_hist.values()))
+
+
 def serve_phase(torch, dev, model, init_s: float, phase: str = "serve",
                 **extra):
     """``serve``'s 16 requests on the paged plane (qwen7b; ``qwen32b``
@@ -1518,13 +1550,198 @@ def serve_phase(torch, dev, model, init_s: float, phase: str = "serve",
     check(launches["paged_decode_attention"] == cfg.n_layers * passes,
           f"decode-attention launches {launches['paged_decode_attention']}"
           f" != {cfg.n_layers} x {passes} C==1 passes")
+    writes = cfg.n_layers * paged_passes(engine)
+    check(launches["paged_kv_write"] == writes,
+          f"paged KV writes {launches['paged_kv_write']} != {writes}")
     others = {k: n for k, n in launches.items()
-              if k != "paged_decode_attention" and n}
+              if k not in PAGED_KERNELS and n}
     check(not others, f"the {phase} phase ran other kernels: {others}")
     out.update(engine=ENGINE, init_s=init_s, **c1_pass_times(out), **extra)
     emit(out)
     del engine
     torch.cuda.empty_cache()
+    return out
+
+
+def graph_requests(vocab: int, n: int = GRAPH_N, l_in=GRAPH_L_IN,
+                   l_out: int = GRAPH_L_OUT) -> list:
+    """``n`` requests with prompts of ``l_in`` tokens (a fixed length, or
+    spread over a (low, high) range) and ``l_out`` output tokens."""
+    from repro_torch.core.request import Request
+
+    rng = np.random.default_rng(SEED + 11)
+    lens = (np.full(n, l_in) if isinstance(l_in, int)
+            else np.linspace(*l_in, n).astype(int))
+    return [Request.from_prompt(
+        i, rng.integers(0, vocab, int(m)).astype(np.int32), l_out)
+        for i, m in enumerate(lens)]
+
+
+def graph_iteration_times(torch, model, eager: bool) -> dict:
+    """One K == 1 decode iteration of ``GRAPH_N`` rows at
+    ``GRAPH_TIME_L_IN`` positions, as the engine dispatches it (graph or
+    forced-eager): its host enqueue and wall ``dt`` from the engine's
+    spans, and its device time from ``torch.profiler``'s kernels over
+    ``GRAPH_TIME_STEPS`` iterations (with their count, so that a trace
+    that misses the replayed kernels shows), and the paged decode
+    attention call's share of it."""
+    import contextlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving import tracing
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    engine = InferenceEngine(model, EngineConfig(**dict(ENGINE,
+                                                        decode_block=1)))
+    reqs = graph_requests(model.cfg.vocab_size, l_in=GRAPH_TIME_L_IN,
+                          l_out=4 * GRAPH_TIME_STEPS)
+    for r in reqs:
+        engine.submit(r)
+    ctx = engine_mod._forced_eager() if eager else contextlib.nullcontext()
+    with ctx:
+        while engine.queue or engine.prefilling:
+            engine.step()
+        for _ in range(2):
+            engine.step()             # the graph captured, caches warm
+        tracing.enable()
+        try:
+            evs = [engine.step() for _ in range(GRAPH_TIME_STEPS)]
+            spans = tracing.drain()
+        finally:
+            tracing.disable()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(GRAPH_TIME_STEPS):
+                engine.step()
+            torch.cuda.synchronize()
+    check(all(e["kind"] == "decode" and e["k"] == 1
+              and e["graph"] is not eager for e in evs),
+          f"decode_graph: the timed steps were not K == 1 decode steps of "
+          f"the {'eager' if eager else 'graph'} path: {evs}")
+    dispatch = [1e3 * (sp.end - sp.start) for sp in spans
+                if sp.name == "engine.dispatch"]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {"host_enqueue_ms": float(np.mean(dispatch)),
+           "wall_ms": 1e3 * float(np.mean([e["time"] for e in evs])),
+           "device_ms": sum(e.time_range.elapsed_us() for e in events)
+           / 1e3 / GRAPH_TIME_STEPS,
+           "device_ops_per_iteration": len(events) / GRAPH_TIME_STEPS,
+           "paged_kernel_ops": sum("paged_group_kernel" in e.name
+                                   for e in events) / GRAPH_TIME_STEPS,
+           # one paged decode attention call (its kernel and merge)
+           "paged_call_ms": sum(e.time_range.elapsed_us() for e in events
+                                if "paged_group_kernel" in e.name
+                                or "decode_merge_kernel" in e.name)
+           / 1e3 / GRAPH_TIME_STEPS / model.n_attn}
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def kv_write_timing(torch, dev, model) -> dict:
+    """The paged KV write at qwen7b's decode pass (8 rows, one lane
+    each) and at a prefill chunk's shape (8 x 256 lanes, 174 of them
+    real): device time beside its bound and its plain version's, the
+    two bitwise equal."""
+    from repro_torch.kernels import ops, ref
+
+    cfg = model.cfg
+    h, d = model.n_kv_eff, cfg.resolved_head_dim
+    n_pages, ps, mp = 1024, ENGINE["page_size"], 128
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    pools = [torch.randn(n_pages, h, ps, d, generator=g, device=dev)
+             .to(model.dtype) for _ in range(2)]
+    table = torch.randperm(n_pages, generator=g, device=dev).int()
+    table = table[:8 * mp].reshape(8, mp).contiguous()
+    out = {}
+    for label, c, lens in (("decode", 1, [1] * 8),
+                           ("prefill_chunk", ENGINE["chunk_size"],
+                            [64, 48, 40, 22, 0, 0, 0, 0])):
+        start = torch.tensor([500 + 37 * i for i in range(8)],
+                             dtype=torch.int32, device=dev)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+        k_new, v_new = (torch.randn(8, c, h, d, generator=g, device=dev)
+                        .to(model.dtype).transpose(1, 2) for _ in range(2))
+        want = [t.clone() for t in pools]
+        ref.paged_kv_write_ref(*want, k_new, v_new, table, start, lens_t)
+        got = [t.clone() for t in pools]
+        ops.paged_kv_write(*got, k_new, v_new, table, start, lens_t)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"decode_graph: the paged KV write at {label} differs from "
+              f"its plain version")
+        n_bytes = 4 * sum(lens) * h * d * pools[0].element_size()
+        out[label] = {
+            "ms": device_ms(torch, lambda: ops.paged_kv_write(
+                *got, k_new, v_new, table, start, lens_t)),
+            "plain_ms": device_ms(torch, lambda: ref.paged_kv_write_ref(
+                *want, k_new, v_new, table, start, lens_t)),
+            "max_abs_err": 0.0, "library_ms": None,
+            "lanes_written": sum(lens), **bound_row(n_bytes, 0, 1.0)}
+    return out
+
+
+def decode_graph_phase(torch, dev, model, smi: str) -> dict:
+    """The decode graph against the forced-eager path on ``model``
+    (module docstring, phase 3b)."""
+    import contextlib
+
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.engine import EngineConfig, InferenceEngine
+
+    cfg = model.cfg
+    runs = {}
+    for label in ("graph", "eager"):
+        engine = InferenceEngine(model, EngineConfig(**ENGINE))
+        reqs = graph_requests(cfg.vocab_size)
+        ctx = (engine_mod._forced_eager() if label == "eager"
+               else contextlib.nullcontext())
+        with ctx:
+            out = drive(torch, engine, reqs, f"decode_graph {label}")
+        runs[label] = {"tokens": [list(r.generated) for r in reqs],
+                       "launches": out["launches"],
+                       "decode_iters": engine.decode_iters,
+                       "decode_graph_iters": engine.decode_graph_iters,
+                       "decode_block_hist": engine.decode_block_hist,
+                       "decode_s": out["time_by_kind_s"].get("decode", 0.0),
+                       "wall_s": out["wall_s"]}
+        del engine
+        torch.cuda.empty_cache()
+    graph, eager = runs["graph"], runs["eager"]
+    check(graph["tokens"] == eager["tokens"],
+          "decode_graph: the graph path served other tokens than the "
+          "eager path")
+    check(graph["launches"] == eager["launches"],
+          f"decode_graph: launches {graph['launches']} (graph) != "
+          f"{eager['launches']} (eager)")
+    check(graph["decode_graph_iters"] == graph["decode_iters"]
+          >= GRAPH_L_OUT - 1 and eager["decode_graph_iters"] == 0,
+          f"decode_graph: {graph['decode_graph_iters']} of "
+          f"{graph['decode_iters']} iterations replayed")
+    times = {}
+    for turn in range(2):        # in turns: eager, graph, eager, graph
+        for label in ("eager", "graph"):
+            times.setdefault(label, []).append(
+                graph_iteration_times(torch, model, label == "eager"))
+    per_path = {label: {k: float(np.mean([t[k] for t in ts]))
+                        for k in ts[0]} for label, ts in times.items()}
+    # the tracer drops a device event now and then (device_ms): the
+    # replayed kernels must show, near every layer's
+    check(min(p["paged_kernel_ops"] for p in per_path.values())
+          >= 0.9 * model.n_attn,
+          f"decode_graph: the profiler saw {per_path} paged kernels")
+    out = {"phase": "decode_graph", "nvidia_smi": smi, "model": cfg.name,
+           "engine": ENGINE, "tokens_identical": True,
+           "iterations": graph["decode_iters"],
+           **{f"{k}_{label}": runs[label][k] for label in runs
+              for k in ("decode_block_hist", "decode_s", "wall_s")},
+           "k1_iteration": per_path, "k1_turns": times,
+           "paged_kv_write": kv_write_timing(torch, dev, model),
+           "launches": graph["launches"]}
+    emit(out)
     return out
 
 
@@ -2333,6 +2550,7 @@ def placement_phase(torch) -> dict:
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import ops
     from repro_torch.models.build import seeded_model
+    from repro_torch.serving import engine as engine_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2350,7 +2568,7 @@ def placement_phase(torch) -> dict:
         cluster = placement_cluster(torch, layout, [card, cpu],
                                     seed.state_dict())
         ops.reset_launch_counts()
-        with KeptKernelCalls(torch, ops) as kept:
+        with KeptKernelCalls(torch, ops) as kept, engine_mod._forced_eager():
             res, reqs, wall = placement_serve(torch, cluster, layout)
         launches = ops.launch_counts()
         total.update(launches)
@@ -2388,7 +2606,9 @@ def placement_phase(torch) -> dict:
         want_launches = {
             "page_gather": 2 * handoffs,
             "paged_decode_attention": (cluster.cfg.model.n_layers
-                                       * c1_passes(on_card))}
+                                       * c1_passes(on_card)),
+            "paged_kv_write": (cluster.cfg.model.n_layers
+                               * paged_passes(on_card))}
         check({k: n for k, n in launches.items() if n}
               == {k: n for k, n in want_launches.items() if n},
               f"placement {layout}: launches {launches}, not "
@@ -2541,10 +2761,13 @@ def hybrid_phase(torch, dev, model, init_s: float):
           f"decode-attention launches {launches['paged_decode_attention']}"
           f" != {model.n_attn} shared-attention layers x {passes} C==1 "
           f"passes")
+    writes = model.n_attn * paged_passes(engine)
+    check(launches["paged_kv_write"] == writes,
+          f"hybrid: paged KV writes {launches['paged_kv_write']} != {writes}")
     # chunked prefill carries the SSM state, so the SSD takes the plain
     # scan there, as in the JAX package
     others = {k: n for k, n in launches.items()
-              if k != "paged_decode_attention" and n}
+              if k not in PAGED_KERNELS and n}
     check(not others, f"the hybrid phase ran other kernels: {others}")
     out.update(engine=ENGINE, init_s=init_s, attn_layers=model.n_attn,
                mamba_layers=model.n_mamba)
@@ -2591,8 +2814,11 @@ def moe_phase(torch, dev, model, init_s: float):
           f"moe: decode-attention launches "
           f"{launches['paged_decode_attention']} != {model.n_attn} x "
           f"{passes} C==1 passes")
+    writes = model.n_attn * paged_passes(engine)
+    check(launches["paged_kv_write"] == writes,
+          f"moe: paged KV writes {launches['paged_kv_write']} != {writes}")
     others = {k: n for k, n in launches.items()
-              if k != "paged_decode_attention" and n}
+              if k not in PAGED_KERNELS and n}
     check(not others, f"the moe phase ran other kernels: {others}")
     dropped = float(torch.stack([d for d, _ in drops]).sum())
     out.update(engine=ENGINE, init_s=init_s, **c1_pass_times(out),
@@ -3673,7 +3899,10 @@ class KeptKernelCalls:
     plain versions once the run is over."""
 
     NAMES = ("paged_decode_attention", "page_gather", "flash_attention",
-             "decode_attention", "ssd", "rmsnorm")
+             "decode_attention", "ssd", "rmsnorm", "paged_kv_write")
+    # written in place: its inputs are kept from before the call, its
+    # output is the two pools after it
+    IN_PLACE = ("paged_kv_write",)
 
     def __init__(self, torch, ops):
         self.torch, self.ops = torch, ops
@@ -3688,8 +3917,13 @@ class KeptKernelCalls:
 
     def _keeping(self, name, fn):
         def call(*args, **kw):
+            before = self._copy(args) if name in self.IN_PLACE else None
             out = fn(*args, **kw)
-            self.calls[name].append((self._copy(args), kw, self._copy(out)))
+            if before is not None:
+                self.calls[name].append((before, kw, self._copy(args[:2])))
+            else:
+                self.calls[name].append((self._copy(args), kw,
+                                         self._copy(out)))
             return out
         return call
 
@@ -3710,11 +3944,17 @@ class KeptKernelCalls:
         from repro_torch.kernels import ref
 
         torch = self.torch
+        def plain_write(k_pages, v_pages, *rest):
+            k_pages, v_pages = k_pages.clone(), v_pages.clone()
+            ref.paged_kv_write_ref(k_pages, v_pages, *rest)
+            return k_pages, v_pages
+
         plain = {"paged_decode_attention": ref.paged_decode_attention_ref,
                  "page_gather": ref.page_gather_ref,
                  "flash_attention": ref.flash_attention_ref,
                  "decode_attention": ref.decode_attention_ref,
-                 "ssd": ref.ssd_ref, "rmsnorm": ref.rmsnorm_ref}
+                 "ssd": ref.ssd_ref, "rmsnorm": ref.rmsnorm_ref,
+                 "paged_kv_write": plain_write}
         held = {}
         for name, kept in self.calls.items():
             if not kept:
@@ -3727,8 +3967,11 @@ class KeptKernelCalls:
                 want = plain[name](*args, **kw)
                 what = f"{label}: {name} on {dtype} " \
                        f"{tuple(args[0].shape)}"
-                if name == "page_gather":
-                    check(torch.equal(got, want), f"{what}: not exact")
+                if name in ("page_gather", "paged_kv_write"):
+                    pairs = (zip(got, want) if isinstance(got, tuple)
+                             else [(got, want)])
+                    check(all(torch.equal(g, w) for g, w in pairs),
+                          f"{what}: not exact")
                     errs.append(0.0)
                     continue
                 pairs = (zip(got, want) if isinstance(got, tuple)
@@ -3743,7 +3986,8 @@ class KeptKernelCalls:
 
     @staticmethod
     def tol(name: str, dtype: str) -> float:
-        return 0.0 if name == "page_gather" else EXAMPLE_TOL[dtype]
+        return (0.0 if name in ("page_gather", "paged_kv_write")
+                else EXAMPLE_TOL[dtype])
 
 
 def train_small_moved(torch, mod, ckpt: str, device="cuda") -> dict:
@@ -3787,6 +4031,7 @@ def examples_phase(torch, smi: str) -> dict:
     import tempfile
 
     from repro_torch.kernels import ops
+    from repro_torch.serving import engine as engine_mod
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3805,7 +4050,10 @@ def examples_phase(torch, smi: str) -> dict:
             torch.cuda.synchronize()
             ops.reset_launch_counts()
             t0 = time.perf_counter()
+            # decoded eagerly: a replayed graph calls no kernel wrapper,
+            # so only an eager call can be held to the plain version
             with (KeptKernelCalls(torch, ops) as kept,
+                  engine_mod._forced_eager(),
                   contextlib.redirect_stdout(sys.stderr)):
                 out = mod.main(argv)
             torch.cuda.synchronize()
@@ -3933,6 +4181,12 @@ def main() -> int:
         dryrun_phase(torch, dev, model, smi)
         return 0
 
+    if "--decode-graph" in sys.argv[1:]:
+        print(smi, flush=True)
+        model, _ = load("qwen7b")
+        decode_graph_phase(torch, dev, model, smi)
+        return 0
+
     if "--examples" in sys.argv[1:]:
         print(smi, flush=True)
         examples_phase(torch, smi)
@@ -3970,6 +4224,8 @@ def main() -> int:
 
     model, init_s = load("qwen7b")
     serve = serve_phase(torch, dev, model, init_s)
+    decode_graph = decode_graph_phase(torch, dev, model, smi)
+    rows["paged_kv_write"] = decode_graph["paged_kv_write"]["decode"]
     pd = pd_phase(torch, dev, model)
     prefix = prefix_phase(torch, dev, model)
     spec = spec_phase(torch, dev, model)
@@ -4036,7 +4292,8 @@ def main() -> int:
 
     # launches: the main paths' runs, each with the counts set to 0 just
     # before it (the kernels phase's comparisons are not counted)
-    main_paths = {"serve": serve, "pd": pd, "prefix": prefix, "spec": spec,
+    main_paths = {"serve": serve, "decode_graph": decode_graph, "pd": pd,
+                  "prefix": prefix, "spec": spec,
                   "cluster": cluster, "cluster_pd": cluster_pd,
                   "placement": placement, "slot": slot,
                   "mamba": mamba, "hybrid": hybrid, "hybrid_pd": hybrid_pd,
@@ -4053,6 +4310,8 @@ def main() -> int:
         ("decode_attention", "src/repro/kernels/decode_attention.py:69"),
         ("ssd", "src/repro/kernels/ssd.py:86"),
         ("rmsnorm", "src/repro/kernels/rmsnorm.py:32"),
+        # port-only: the JAX package's dropping scatter has no kernel
+        ("paged_kv_write", None),
     ):
         row = rows[name]
         by_phase = {ph: out["launches"][name] for ph, out in main_paths.items()

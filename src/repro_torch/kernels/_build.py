@@ -15,11 +15,14 @@ the CUDA runtime only, so the build needs no ``-lcuda``.
 
 :func:`launch` is the one place a kernel is launched, so it also keeps
 each kernel's launch count: a plain int that goes up by one when the C
-entry point reports a successful launch, and nowhere else.
+entry point reports a successful launch.  A CUDA graph's replay
+launches without calling it: the engine adds the launches the graph's
+capture recorded (:func:`uncounted`, :func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -68,6 +71,10 @@ SIGNATURES = {
         "rmsnorm_launch",
         [_VOID_P] * 3 + [_INT] * 3 + [ctypes.c_float, _VOID_P],
     ),
+    "paged_kv_write": (
+        "paged_kv_write_launch",
+        [_VOID_P] * 7 + [_INT] * 7 + [ctypes.c_longlong] * 6 + [_VOID_P],
+    ),
 }
 # further C entry points of a library: name -> (library, argtypes)
 ENTRIES = {
@@ -100,6 +107,29 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Count launches made elsewhere than :func:`launch`: a CUDA graph's
+    replay adds the launches its capture recorded."""
+    for name, n in counts.items():
+        _launches[name] += n
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside the block are taken back out of the counts
+    when it ends, and left in the dict it yields (by kernel, those that
+    launched): a graph's capture records launches that compute nothing
+    until it is replayed."""
+    before = dict(_launches)
+    made: dict[str, int] = {}
+    try:
+        yield made
+    finally:
+        made.update({k: n - before[k] for k, n in _launches.items()
+                     if n != before[k]})
+        _launches.update(before)
 
 
 def cuda_tool(tool: str) -> str:

@@ -25,6 +25,7 @@ import torch
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import page_gather as _gather
+from repro_torch.kernels import paged_kv_write as _kv_write
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rmsnorm
 from repro_torch.kernels import ssd as _ssd
@@ -32,7 +33,7 @@ from repro_torch.kernels._build import launch_counts, reset_launch_counts
 
 __all__ = ["launch_counts", "reset_launch_counts", "flash_attention",
            "decode_attention", "paged_decode_attention", "page_gather", "ssd",
-           "rmsnorm"]
+           "rmsnorm", "paged_kv_write"]
 
 
 def _no_backward(name: str, *tensors) -> None:
@@ -100,3 +101,15 @@ def rmsnorm(x, scale, *, eps: float = 1e-5):
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, scale, eps=eps)
     return _rmsnorm.rmsnorm(x, scale, eps=eps)
+
+
+def paged_kv_write(k_pages, v_pages, k_new, v_new, page_table, start, lens):
+    """Write a chunk's (B, H, C, D) new K/V into (NP, H, ps, D) page
+    pools in place: lanes ``c < lens[b]`` at position ``start[b] + c``
+    whose page is allocated; see ``ref.paged_kv_write_ref``."""
+    _no_backward("paged_kv_write", k_new, v_new)
+    if k_pages.device.type == "cpu":
+        return ref.paged_kv_write_ref(k_pages, v_pages, k_new, v_new,
+                                      page_table, start, lens)
+    return _kv_write.paged_kv_write(k_pages, v_pages, k_new, v_new,
+                                    page_table, start, lens)

@@ -17,6 +17,9 @@ Two deliberate differences from the JAX oracles:
   can appear.
 
 ``ssd_ref`` and ``rmsnorm_ref`` follow their JAX oracles exactly;
+``paged_kv_write_ref`` is the JAX package's dropping scatter, written as
+a host-side filter (``paged_write_index``) and an indexed write
+(``update_paged_cache``), which the model's plain route calls itself;
 ``ssd_chunk_cb_ref`` and ``ssd_chunk_scan_ref`` are the two passes of
 the tensor-core SSD kernel, whose composition computes ``ssd_ref``'s
 function.
@@ -106,6 +109,52 @@ def page_gather_ref(pages, page_ids) -> torch.Tensor:
     g = pages[:, ids]  # (L, M, H, ps, D)
     n_l, m, h, ps, d = g.shape
     return g.permute(0, 2, 1, 3, 4).reshape(n_l, h, m * ps, d)
+
+
+def paged_write_index(page_table, positions, valid, page_size: int):
+    """Where a chunk's new K/V tokens land in the page pool.
+
+    page_table: (B, MP) int32; positions: (B, C) absolute positions;
+    valid: (B, C) bool.  Returns ``(rows, phys, off)``: the flat
+    ``b * C + c`` index of every token that is written (a valid row
+    whose page is allocated), its page id and its in-page offset.  The
+    JAX package drops the other writes by scattering out of bounds;
+    here they are filtered with ``nonzero()`` (a host sync), once per
+    forward pass on the model's plain route, whose layers share it.
+    """
+    logical = (positions // page_size).clamp(0, page_table.shape[1] - 1)
+    phys = torch.gather(page_table, 1, logical.long())
+    rows = (valid & (phys >= 0)).flatten().nonzero().squeeze(1)
+    return (rows, phys.flatten()[rows].long(),
+            (positions % page_size).flatten()[rows].long())
+
+
+def update_paged_cache(k_pages, v_pages, index, k_new, v_new) -> None:
+    """Write a chunk of new K/V tokens into the page pools, in place.
+
+    k_pages/v_pages: (NP, H, ps, hd); index: from
+    :func:`paged_write_index`; k_new/v_new: (B, H, C, hd).
+    """
+    rows, phys, off = index
+    b, h, c, hd = k_new.shape
+    for pages, new in ((k_pages, k_new), (v_pages, v_new)):
+        flat = new.transpose(1, 2).reshape(b * c, h, hd)
+        pages[phys, :, off, :] = flat.index_select(0, rows).to(pages.dtype)
+
+
+def paged_kv_write_ref(k_pages, v_pages, k_new, v_new, page_table, start,
+                       lens) -> None:
+    """The paged KV write kernel's plain version, in place: lane (b, c)
+    of k_new/v_new (B, H, C, D) at position ``start[b] + c`` is written
+    when ``c < lens[b]`` and its page is allocated (the JAX package's
+    dropping scatter, ``repro/models/attention.py::update_paged_cache``)."""
+    c = k_new.shape[2]
+    steps = torch.arange(c, dtype=torch.int32, device=k_new.device)
+    positions = start[:, None] + steps[None, :]
+    valid = steps[None, :] < lens[:, None]
+    index = paged_write_index(page_table, positions, valid,
+                              k_pages.shape[2])
+    update_paged_cache(k_pages, v_pages, index, k_new, v_new)
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, page_table,

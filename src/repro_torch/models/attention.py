@@ -1,7 +1,10 @@
 """GQA attention (counterpart of ``repro/models/attention.py``):
-projection, masks, the paged plane's writes and chunk attention, and
-the slot plane's prefill attention, cached decode attention and
-sliding-window ring cache.
+projection, masks, the paged plane's chunk attention, and the slot
+plane's prefill attention, cached decode attention and sliding-window
+ring cache.  The paged plane's plain write (``paged_write_index`` and
+``update_paged_cache``) lives in :mod:`repro_torch.kernels.ref`, beside
+the kernel that replaces it on the card, and is called through this
+module on the model's plain route.
 
 Caches are updated in place — the JAX package returns new arrays; here
 a page pool or a slot cache is one tensor that every step writes into,
@@ -14,7 +17,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ref import paged_gather
+from repro_torch.kernels.ref import (  # noqa: F401  (the plain write)
+    paged_gather,
+    paged_write_index,
+    update_paged_cache,
+)
 from repro_torch.models.common import apply_rope
 
 NEG_INF = -1e30
@@ -83,37 +90,6 @@ def _sdpa(q_blk, k, v, mask, scale):
     scores = torch.where(mask[:, :, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     return torch.matmul(probs.to(v.dtype), v[:, :, None])
-
-
-def paged_write_index(page_table, positions, valid, page_size: int):
-    """Where a chunk's new K/V tokens land in the page pool.
-
-    page_table: (B, MP) int32; positions: (B, C) absolute positions;
-    valid: (B, C) bool.  Returns ``(rows, phys, off)``: the flat
-    ``b * C + c`` index of every token that is written (a valid row
-    whose page is allocated), its page id and its in-page offset.  The
-    JAX package drops the other writes by scattering out of bounds;
-    here they are filtered once per forward pass (one host sync) and
-    every layer reuses the result.
-    """
-    logical = (positions // page_size).clamp(0, page_table.shape[1] - 1)
-    phys = torch.gather(page_table, 1, logical.long())
-    rows = (valid & (phys >= 0)).flatten().nonzero().squeeze(1)
-    return (rows, phys.flatten()[rows].long(),
-            (positions % page_size).flatten()[rows].long())
-
-
-def update_paged_cache(k_pages, v_pages, index, k_new, v_new) -> None:
-    """Write a chunk of new K/V tokens into the page pools, in place.
-
-    k_pages/v_pages: (NP, H, ps, hd); index: from
-    :func:`paged_write_index`; k_new/v_new: (B, H, C, hd).
-    """
-    rows, phys, off = index
-    b, h, c, hd = k_new.shape
-    for pages, new in ((k_pages, k_new), (v_pages, v_new)):
-        flat = new.transpose(1, 2).reshape(b * c, h, hd)
-        pages[phys, :, off, :] = flat.index_select(0, rows).to(pages.dtype)
 
 
 def paged_chunk_attention(q, k_pages, v_pages, page_table, *, q_pos,

@@ -69,17 +69,20 @@ are written in place.
 
 On the card the hot spots go through the CUDA kernels of
 :mod:`repro_torch.kernels.ops` (their plain versions on the CPU): the
-paged decode attention of a C == 1 ``chunk_step``, the flash attention
-of every ``prefill`` and ``forward`` layer, the decode attention of
-``decode_step`` on ``window == 0`` layers, and the SSD scan of a
-Mamba-2 ``prefill`` or ``forward`` layer whose padded length is a
-multiple of the chunk (the gate of ``models/mamba2.py::mamba_block``).
-With ``use_kernels=False`` they take the plain routes the JAX model
-takes by default (paged gather, chunked prefill attention with
-``lens``, masked decode attention, chunked SSD scan).  Local layers'
-decode attention over the ring cache and the SSD of chunked prefill and
-of decode are always plain routes, as in JAX.  No kernel has a
-backward, in either package: the trainer builds the model with
+K/V write of every paged ``chunk_step`` (the JAX package's dropping
+scatter, which the plain route does with a host-side filter that a CUDA
+graph cannot capture), the paged decode attention of a C == 1
+``chunk_step``, the flash attention of every ``prefill`` and
+``forward`` layer, the decode attention of ``decode_step`` on ``window
+== 0`` layers, and the SSD scan of a Mamba-2 ``prefill`` or ``forward``
+layer whose padded length is a multiple of the chunk (the gate of
+``models/mamba2.py::mamba_block``).  With ``use_kernels=False`` they
+take the plain routes the JAX model takes by default (the filtered
+paged write, paged gather, chunked prefill attention with ``lens``,
+masked decode attention, chunked SSD scan).  Local layers' decode
+attention over the ring cache and the SSD of chunked prefill and of
+decode are always plain routes, as in JAX.  No kernel has a backward,
+in either package: the trainer builds the model with
 ``use_kernels=False``, JAX's ``build_model(cfg, remat=True)``.
 """
 
@@ -321,11 +324,17 @@ class Model(nn.Module):
                                 kv_repeat=self.kv_repeat)
 
     def _paged_layer(self, blk: AttnBlock, x, *, positions, kv_len,
-                     k_pages, v_pages, page_table, index):
+                     k_pages, v_pages, page_table, start, chunk_lens, index):
         cfg = self.cfg
         s = x.shape[1]
         q, k, v = self._qkv(blk, x, positions)
-        attn.update_paged_cache(k_pages, v_pages, index, k, v)
+        if index is None:
+            # the kernel decides each lane on the card: no host sync, so
+            # a decode iteration can be captured as a CUDA graph
+            ops.paged_kv_write(k_pages, v_pages, k, v, page_table, start,
+                               chunk_lens)
+        else:
+            attn.update_paged_cache(k_pages, v_pages, index, k, v)
         if self.use_kernels and s == 1:
             # GQA is resolved inside the kernel — the pool stays at Hkv
             ctx = ops.paged_decode_attention(
@@ -482,7 +491,10 @@ class Model(nn.Module):
         positions = start[:, None] + steps[None, :]
         valid = steps[None, :] < chunk_lens[:, None]
         pools, state = _paged_parts(caches)
-        if pools is not None:
+        index = None   # the write kernel's route (kernels, on the card)
+        if pools is not None and not (self.use_kernels
+                                      and tokens.device.type == "cuda"):
+            # the plain route: one host-side filter shared by the layers
             ps = pools["k_pages"].shape[3]
             index = attn.paged_write_index(page_table, positions, valid, ps)
         kv_len = positions[:, 0] + chunk_lens
@@ -499,7 +511,8 @@ class Model(nn.Module):
             x = self._paged_layer(
                 blk, x, positions=positions, kv_len=kv_len,
                 k_pages=pools["k_pages"][row], v_pages=pools["v_pages"][row],
-                page_table=page_table, index=index,
+                page_table=page_table, start=start, chunk_lens=chunk_lens,
+                index=index,
             )
         return x
 

@@ -69,6 +69,25 @@ all-frozen verify pass per power-of-two proposal width up to
 the cluster calls it on a throwaway engine so that the first kernel
 launches, cuBLAS's and the allocator's set-up land in no measured step.
 
+**Decode as a CUDA graph** (paged plane, on the card, a model built
+with its kernels): the first paged decode dispatch captures one decode
+iteration (a C == 1 ``chunk_step`` over the engine's page pools, then
+``Model._decode_block_body``) as a CUDA graph, :class:`_DecodeGraph`,
+after one eager iteration on all-frozen rows; ``warm_decode_blocks``
+captures it too.  Every decode iteration the engine dispatches then
+replays it: once for a K == 1 step, K times chained on the card for a
+fused block.  Its inputs are static buffers: the page table (the KV
+manager's one device buffer, uploaded into when the table changed),
+``(last, pos, alive, rem)`` (``last`` and ``pos`` uploaded only after a
+host-side change; otherwise the last replay's outputs, which each
+replay writes back into its inputs), and its captured launches are added
+to ``_build``'s counts at each replay.  The host issues one graph
+launch for the ~2,500 launches of an iteration.  ``decode_graph_iters``
+of ``decode_iters`` count the iterations replayed; each decode step's
+event says whether it replayed (``graph``).  The CPU, the slot plane
+and speculative verify passes run eagerly, as does everything inside
+``_forced_eager()`` (a check's comparison of the two paths).
+
 With the span recorder of ``serving/tracing.py`` on, each ``step()``
 records its schedule, dispatch, sync and commit at the stamps the
 profiler's ``dt`` is taken from (``_timed``), and each request its time
@@ -77,6 +96,7 @@ in the queue; off, a step pays one flag test.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Optional, Sequence
@@ -87,6 +107,7 @@ import torch
 from repro_torch.core.latency_model import FittedLatencyModel
 from repro_torch.core.request import Request, RequestState
 from repro_torch.core.token_budget import ntoken_limit
+from repro_torch.kernels import _build
 from repro_torch.models.build import Model
 from repro_torch.serving.kv_manager import (
     KVPayload,
@@ -104,6 +125,86 @@ from repro_torch.serving.spec_decode import (
     slo_spec_len,
 )
 from repro_torch.serving import tracing
+
+
+_EAGER_ONLY = [0]   # > 0 inside _forced_eager()
+
+
+@contextlib.contextmanager
+def _forced_eager():
+    """For checks only: inside the block no engine captures or replays
+    its decode graph, so that a test or ``chip_smoke.py`` can compare
+    the eager path with the graph path, or hold each kernel call to its
+    plain version (a replay calls no Python)."""
+    _EAGER_ONLY[0] += 1
+    try:
+        yield
+    finally:
+        _EAGER_ONLY[0] -= 1
+
+
+class _DecodeGraph:
+    """One paged decode iteration of ``engine``, captured as a CUDA
+    graph over its page pools, its KV manager's device table and static
+    inputs.
+
+    ``state`` (4, n_slots) int32 holds the iteration's inputs ``last``,
+    ``pos``, ``alive`` (as 0 / 1) and ``rem``; a replay writes its
+    outputs (the token, the new position, alive and remaining budget)
+    back into it, so that K replays chain on the card, and the input
+    ``alive`` into ``valid`` (the rows that emitted).  ``launches`` are
+    the kernel launches one replay makes, by kernel.  The graph holds the
+    addresses of the engine's cache leaves: the engine writes its caches
+    in place and never replaces them."""
+
+    def __init__(self, engine: "InferenceEngine"):
+        cfg, dev, model = engine.cfg, engine.device, engine.model
+        caches = engine.caches
+        self.state = torch.zeros((4, cfg.n_slots), dtype=torch.int32,
+                                 device=dev)
+        self.valid = torch.zeros(cfg.n_slots, dtype=torch.bool, device=dev)
+        self.views = (self.state[0], self.state[1])   # (last, pos)
+        self.host = np.zeros((4, cfg.n_slots), np.int32)  # upload staging
+        table = engine.kv.device_table()
+        eos = -1 if cfg.eos_token is None else cfg.eos_token
+
+        @torch.no_grad()
+        def body():
+            last, pos, lens, rem = self.state
+            logits, _ = model.chunk_step(caches, table, last[:, None], pos,
+                                         lens)
+            tok, new_pos, alive, new_rem = model._decode_block_body(
+                last, pos, lens.bool(), rem, eos, cfg.max_len, logits)
+            self.valid.copy_(lens)
+            self.state.copy_(torch.stack(
+                [tok, new_pos, alive.to(torch.int32), new_rem]))
+
+        # one eager iteration on frozen rows first (its writes dropped),
+        # on the capture's stream: first launches, cuBLAS's workspace
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            with _build.uncounted():
+                body()
+            self.graph = torch.cuda.CUDAGraph()
+            with _build.uncounted() as self.launches:
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    body()
+                finally:
+                    self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(stream)
+
+    def replay(self, k: int, toks=None, valids=None) -> None:
+        """``k`` iterations on the current stream; with ``toks`` /
+        ``valids`` (n_slots, k), each iteration's token and emitting
+        rows go into column i."""
+        for i in range(k):
+            self.graph.replay()
+            if toks is not None:
+                toks[:, i].copy_(self.state[0])
+                valids[:, i].copy_(self.valid)
+        _build.add_launches({name: n * k for name, n in self.launches.items()})
 
 
 @dataclasses.dataclass
@@ -220,6 +321,11 @@ class InferenceEngine:
         self._host_state_dirty = True
         self.n_dispatches = 0       # dispatches (= host syncs)
         self.n_decode_tokens = 0    # tokens emitted by decode steps
+        # the captured decode iteration (paged plane on the card), and
+        # how many decode iterations replayed it of all dispatched
+        self._graph: Optional[_DecodeGraph] = None
+        self.decode_iters = 0
+        self.decode_graph_iters = 0
         # prompt tokens actually prefilled: cache hits skip prefill, so
         # with a prefix cache this undercounts l_in by the hit tokens
         self.n_prefill_tokens = 0
@@ -259,13 +365,14 @@ class InferenceEngine:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device)
 
-    def _timed(self, call, lanes: int, **attrs):
-        """One dispatch: ``call()`` (the model call, its arguments'
-        uploads included), then the wait for the device.  Returns its
-        outputs and ``dt``, the seconds between the two stamps the Eq. 5
-        profiler reads.  The recorder's open step, if any, takes those
-        stamps and the call's return as its dispatch and sync, after
-        ``t1``; ``lanes`` and ``attrs`` go on its dispatch span.  Only
+    def _timed(self, call, lanes: int, graph: bool = False, **attrs):
+        """One dispatch: ``call()`` (the model call or the decode graph's
+        replays, their inputs' uploads included), then the wait for the
+        device.  Returns its outputs and ``dt``, the seconds between the
+        two stamps the Eq. 5 profiler reads.  The recorder's open step,
+        if any, takes those stamps and the call's return as its dispatch
+        and sync, after ``t1``; ``lanes``, ``graph`` (1 for replays) and
+        ``attrs`` go on its dispatch span.  Only
         the return's stamp, and under a recording profiler the switch of
         ``record_function`` ranges, fall inside ``dt``."""
         tr = self._trace
@@ -283,7 +390,8 @@ class InferenceEngine:
         if tr is not None:
             if noted:
                 tr.switch("engine.commit")
-            tr.dispatched(t0, back, t1, dict(lanes=int(lanes), **attrs))
+            tr.dispatched(t0, back, t1, dict(lanes=int(lanes),
+                                             graph=int(graph), **attrs))
         return out, t1 - t0
 
     def _trace_queue(self, rid: int, opens: bool) -> None:
@@ -685,13 +793,64 @@ class InferenceEngine:
             self._host_state_dirty = False
         return self._dev_state
 
+    def _decode_graph(self) -> Optional[_DecodeGraph]:
+        """The captured decode iteration this dispatch replays, captured
+        now if this engine has none yet; None where
+        decode runs eagerly: the CPU, the slot plane, a model on its plain
+        routes (its paged write filters on the host), ``_forced_eager``."""
+        if not (self.paged and self.device.type == "cuda"
+                and self.model.use_kernels) or _EAGER_ONLY[0]:
+            return None
+        if self._graph is None:
+            self._graph = _DecodeGraph(self)
+        return self._graph
+
+    def _replay_decode(self, g: _DecodeGraph, alive, rem, k: int):
+        """The graph path of a decode dispatch: this dispatch's ``alive``
+        and ``rem`` into the graph's inputs, with ``last`` / ``pos`` only
+        after a host-side change, the page table if it changed, then
+        ``k`` replays.  Returns the (n_slots, k) tokens and emitting rows
+        for k > 1, else None (the token is ``g.state[0]``)."""
+        h = g.host
+        h[2], h[3] = alive, rem
+        first = 2
+        if self._host_state_dirty or self._dev_state is not g.views:
+            h[0], h[1] = self.last_token, self.pos
+            first = 0
+        # non-blocking from pageable memory: staged before it returns
+        g.state[first:].copy_(torch.from_numpy(h[first:]), non_blocking=True)
+        self.kv.device_table()
+        out = None
+        if k > 1:
+            n = self.cfg.n_slots
+            out = (torch.empty((n, k), dtype=torch.int32, device=self.device),
+                   torch.empty((n, k), dtype=torch.bool, device=self.device))
+        with torch.cuda.device(self.device):
+            g.replay(k, *(out or ()))
+        self._dev_state = g.views
+        self._host_state_dirty = False
+        return out
+
+    def _decode_rows(self) -> tuple:
+        """The decode batch's rows: alive (bool), remaining output budget
+        and the starting position of each active slot."""
+        alive = np.zeros(self.cfg.n_slots, bool)
+        rem = np.zeros(self.cfg.n_slots, np.int32)
+        pos0: dict[int, int] = {}
+        for s, r in self.active.items():
+            alive[s] = True
+            rem[s] = r.l_out - len(r.generated)
+            pos0[s] = int(self.pos[s])
+        return alive, rem, pos0
+
     def warm_decode_blocks(self) -> None:
         """Run one decode block per power-of-two K up to ``decode_block``
         and, with speculation on, one verify pass per power-of-two
         proposal width up to ``max_spec_len``, with an all-frozen batch,
         outputs discarded — the counterpart of the JAX engine's
         compile-ahead, so that first launches and allocations land in no
-        measured step.  For an idle engine: a frozen paged row drops its
+        measured step — then captures the decode graph where the engine
+        replays one.  For an idle engine: a frozen paged row drops its
         writes, but a frozen slot-plane row rewrites its position-0
         entry, so the slot plane's rows are cleared afterwards."""
         if self.queue or self.active or self.prefilling or self.parked:
@@ -724,6 +883,7 @@ class InferenceEngine:
         if not self.paged:
             self.caches = clear_rows(self.caches, self.axes,
                                      list(range(cfg.n_slots)))
+        self._decode_graph()
 
     def _spec_history(self, r: Request) -> list[int]:
         """The request's true token sequence (prompt + generated).
@@ -858,40 +1018,42 @@ class InferenceEngine:
         self._retire(finish_at)
         return {"kind": "decode", "n": len(pos0), "k": kpad + 1,
                 "tokens": n_emitted, "time": dt, "spec": True,
-                "token_events": tok_ev}
+                "token_events": tok_ev, "graph": False}
 
     def _decode_block_step(self, k: int) -> dict:
         """One fused K-iteration decode block: one dispatch and one host
         sync cover K tokens for every active slot, with stopping
         evaluated on the device."""
         cfg = self.cfg
-        alive = np.zeros(cfg.n_slots, bool)
-        rem = np.zeros(cfg.n_slots, np.int32)
-        pos0: dict[int, int] = {}
-        for s, r in self.active.items():
-            alive[s] = True
-            rem[s] = r.l_out - len(r.generated)
-            pos0[s] = int(self.pos[s])
-        last_d, pos_d = self._device_state()
-        eos = -1 if cfg.eos_token is None else cfg.eos_token
-        state = (last_d, pos_d, self._tensor(alive), self._tensor(rem), eos,
-                 cfg.max_len)
+        alive, rem, pos0 = self._decode_rows()
+        g = self._decode_graph()
+        if g is not None:
+            (toks, valid), dt = self._timed(
+                lambda: self._replay_decode(g, alive, rem, k),
+                lanes=cfg.n_slots * k, graph=True)
+        else:
+            last_d, pos_d = self._device_state()
+            eos = -1 if cfg.eos_token is None else cfg.eos_token
+            state = (last_d, pos_d, self._tensor(alive), self._tensor(rem),
+                     eos, cfg.max_len)
 
-        def call():
-            if self.paged:
-                return self.model.decode_block(
-                    self.caches, self.kv.device_table(), *state, k=k)
-            return self.model.decode_block_slots(self.caches, *state, k=k)
+            def call():
+                if self.paged:
+                    return self.model.decode_block(
+                        self.caches, self.kv.device_table(), *state, k=k)
+                return self.model.decode_block_slots(self.caches, *state,
+                                                     k=k)
 
-        ((toks, valid, last_f, pos_f), self.caches), dt = self._timed(
-            call, lanes=cfg.n_slots * k)
+            ((toks, valid, last_f, pos_f), self.caches), dt = self._timed(
+                call, lanes=cfg.n_slots * k)
+            self._dev_state = (last_f, pos_f)
+            self._host_state_dirty = False
         tk = toks.cpu().numpy()    # (n_slots, K)
         vd = valid.cpu().numpy()   # (n_slots, K) bool
         self.clock += dt
         self.n_dispatches += 1
         self.decode_block_hist[k] = self.decode_block_hist.get(k, 0) + 1
-        self._dev_state = (last_f, pos_f)
-        self._host_state_dirty = False
+        self._count_decode(k, g is not None)
 
         t_start = self.clock - dt
         finish_at: dict[int, float] = {}
@@ -918,7 +1080,8 @@ class InferenceEngine:
         self.n_decode_tokens += n_emitted
         self._retire(finish_at)
         return {"kind": "decode", "n": len(pos0), "k": k,
-                "tokens": n_emitted, "time": dt, "token_events": tok_ev}
+                "tokens": n_emitted, "time": dt, "token_events": tok_ev,
+                "graph": g is not None}
 
     def _decode_paged(self) -> dict:
         cfg = self.cfg
@@ -945,20 +1108,28 @@ class InferenceEngine:
                     )
         if k > 1:
             return self._decode_block_step(k)
-        lens = np.zeros((cfg.n_slots,), np.int32)
-        for s in self.active:
-            lens[s] = 1  # the new token lands at position pos[s]
-        (logits, self.caches), dt = self._timed(
-            lambda: self.model.chunk_step(
-                self.caches, self.kv.device_table(),
-                self._tensor(self.last_token[:, None]),
-                self._tensor(self.pos), self._tensor(lens)),
-            lanes=cfg.n_slots)
-        nxt = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+        g = self._decode_graph()
+        if g is not None:
+            alive, rem, _ = self._decode_rows()
+            _, dt = self._timed(lambda: self._replay_decode(g, alive, rem, 1),
+                                lanes=cfg.n_slots, graph=True)
+            nxt = g.state[0].cpu().numpy()   # read before the next replay
+        else:
+            lens = np.zeros((cfg.n_slots,), np.int32)
+            for s in self.active:
+                lens[s] = 1  # the new token lands at position pos[s]
+            (logits, self.caches), dt = self._timed(
+                lambda: self.model.chunk_step(
+                    self.caches, self.kv.device_table(),
+                    self._tensor(self.last_token[:, None]),
+                    self._tensor(self.pos), self._tensor(lens)),
+                lanes=cfg.n_slots)
+            nxt = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
+            self._host_state_dirty = True
         self.clock += dt
         self.profiler.observe_decode(
             [int(self.pos[s]) for s in sorted(self.active)], dt)
-        return self._finish_per_token_decode(nxt, dt)
+        return self._finish_per_token_decode(nxt, dt, graph=g is not None)
 
     # ==========================================================================
     # Slot plane (monolithic prefill)
@@ -1054,13 +1225,17 @@ class InferenceEngine:
             lanes=self.cfg.n_slots)
         nxt = logits.argmax(dim=-1).to(torch.int32).cpu().numpy()
         self.clock += dt
+        self._host_state_dirty = True
         self.profiler.observe_decode(
             [int(self.pos[s]) for s in self.slots.active_slots()], dt)
         return self._finish_per_token_decode(nxt, dt)
 
-    def _finish_per_token_decode(self, nxt, dt: float) -> dict:
+    def _finish_per_token_decode(self, nxt, dt: float,
+                                 graph: bool = False) -> dict:
         """K == 1 tail of both planes: append the sampled token per active slot,
-        advance host state, account telemetry and retire."""
+        advance host state, account telemetry and retire.  An eager
+        caller has marked the device's (last, pos) stale; a replay left
+        it equal to the host's new state."""
         n_tok = len(self.active)
         tok_ev: list[tuple] = []
         for s, r in list(self.active.items()):
@@ -1070,13 +1245,19 @@ class InferenceEngine:
             r.tokens_done = len(r.generated)
             self.last_token[s] = tok
             tok_ev.append((r.rid, tok, self.clock))
-        self._host_state_dirty = True
         self.n_dispatches += 1
         self.decode_block_hist[1] = self.decode_block_hist.get(1, 0) + 1
+        self._count_decode(1, graph)
         self.n_decode_tokens += n_tok
         self._retire()
         return {"kind": "decode", "n": n_tok, "k": 1,
-                "tokens": n_tok, "time": dt, "token_events": tok_ev}
+                "tokens": n_tok, "time": dt, "token_events": tok_ev,
+                "graph": graph}
+
+    def _count_decode(self, k: int, graph: bool) -> None:
+        self.decode_iters += k
+        if graph:
+            self.decode_graph_iters += k
 
     # -- completion ------------------------------------------------------------
     def _is_done(self, r: Request, s: int) -> bool:
@@ -1129,3 +1310,4 @@ class InferenceEngine:
                 "drain before scale-in"
             )
         self.model = None
+        self._graph = None

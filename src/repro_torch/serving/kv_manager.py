@@ -109,7 +109,8 @@ class PagedKVManager:
     for unallocated entries — the operand the paged attention paths
     consume.  ``device_table()`` keeps a copy on ``device`` (CUDA
     unless the caller names another: :func:`repro_torch.resolve_device`)
-    and uploads it again only after allocation changed.
+    and uploads it again, into the same buffer, only after allocation
+    changed.
     """
 
     def __init__(self, n_slots: int, max_len: int, page_size: int,
@@ -124,6 +125,7 @@ class PagedKVManager:
         self._n_pages_of = np.zeros(n_slots, np.int32)
         self.device = resolve_device(device)
         self.dirty = True
+        self._table_buf: Optional[torch.Tensor] = None
         self._table_dev: Optional[torch.Tensor] = None
         # optional PrefixCache (attach_prefix_cache): shared prefix
         # pages referenced by slot tables, refcounted by the cache
@@ -200,9 +202,20 @@ class PagedKVManager:
     def device_table(self) -> torch.Tensor:
         """The page table as an int32 tensor on the device, re-uploaded
         only when ``ensure`` / ``release`` / ``lookup_prefix`` /
-        ``truncate`` changed it."""
+        ``truncate`` changed it.  Every upload lands in the same device
+        buffer, on the current stream, so a CUDA graph captured over it
+        reads the table of its replay; each upload returns a new view
+        of that buffer, the same view until the next change."""
         if self._table_dev is None or self.dirty:
-            self._table_dev = torch.as_tensor(self.table, device=self.device)
+            if self._table_buf is None:
+                self._table_buf = torch.empty(self.table.shape,
+                                              dtype=torch.int32,
+                                              device=self.device)
+            # the host table is mutable: a non-blocking copy from
+            # pageable memory is staged before the call returns
+            self._table_buf.copy_(torch.from_numpy(self.table),
+                                  non_blocking=True)
+            self._table_dev = self._table_buf.view(self.table.shape)
             self.dirty = False
         return self._table_dev
 

@@ -26,7 +26,9 @@ Engine spans, one tree per ``InferenceEngine.step()`` call:
   - ``engine.dispatch`` — from that stamp until the model call returns:
     the host's enqueue of every launch, the uploads in its arguments
     included.  ``lanes``: the rows × positions computed (× K for a fused
-    block); ``tokens``: the real tokens prefilled or emitted.  A paged
+    block); ``tokens``: the real tokens prefilled or emitted; ``graph``:
+    1 where the dispatch replayed the engine's captured decode
+    iteration (one graph launch an iteration), else 0.  A paged
     prefill chunk adds ``pairs`` (lanes × key positions its chunk
     attention scores) and ``pairs_needed`` (the causal pairs its real
     tokens need).

@@ -479,7 +479,7 @@ def test_launch_counts_only_a_launch_the_entry_point_reports(monkeypatch,
     assert ops.launch_counts() == {"paged_decode_attention": counted,
                                    "page_gather": 0, "flash_attention": 0,
                                    "decode_attention": 0, "ssd": 0,
-                                   "rmsnorm": 0}
+                                   "rmsnorm": 0, "paged_kv_write": 0}
     ops.reset_launch_counts()
 
 
@@ -831,7 +831,7 @@ def test_empty_calls_launch_nothing_and_count_nothing(cuda):
     assert ops.launch_counts() == {"paged_decode_attention": 1,
                                    "page_gather": 1, "flash_attention": 0,
                                    "decode_attention": 0, "ssd": 1,
-                                   "rmsnorm": 1}
+                                   "rmsnorm": 1, "paged_kv_write": 0}
 
 
 @pytest.mark.cuda
