@@ -5,12 +5,22 @@ metric or reference family is a file of its own under this folder,
 found from the name alone:
 
 - ``configs/<config>.json``: a model's published sizes, the engine
-  settings it is served with, its reference family and what was assumed;
+  settings it is served with, its family, its reference family and what
+  was assumed;
+- ``families/<family>.py``: how the benchmark draws, builds and counts
+  one architecture family: ``shapes(cfg)`` (every weight's shape, in
+  the order drawn), ``std(name, shape)``, ``port_config(cfg)`` (the
+  port's ``ModelConfig``), ``state_dict(cfg, weights)`` (the port's
+  parameter names mapped to views of the drawn tensors) and
+  ``counts(cfg)`` (the FLOPs and bytes the metric readers take);
 - ``traffic/<mix>.json``: the parameters the one traffic generator reads;
 - ``cells/<cell>.json``: the configuration, the mix, the rate and the
   run's shape (pre-roll, drain, traced steps, the correctness limit);
 - ``metrics/<metric>.py``: one reader per metric, ``read(run)``;
 - ``reference/<family>.py``: a plain PyTorch forward of one family.
+
+A configuration of a new architecture is its config file, its family
+and its reference, with a cell and a mix as for any other.
 
 Adding one of them is adding a file: nothing here lists them.
 """
@@ -19,13 +29,14 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from pathlib import Path
 from types import ModuleType
 from typing import Callable
 
 ROOT = Path(__file__).resolve().parent
 KINDS = {"configs": ".json", "traffic": ".json", "cells": ".json",
-         "metrics": ".py", "reference": ".py"}
+         "metrics": ".py", "families": ".py", "reference": ".py"}
 
 
 def _path(kind: str, name: str, root: Path) -> Path:
@@ -43,12 +54,15 @@ def load_json(kind: str, name: str, root: Path = ROOT) -> dict:
 
 
 def load_module(kind: str, name: str, root: Path = ROOT) -> ModuleType:
-    """A metric reader or a reference family, loaded from its file (a
-    metric's name may hold dots, so it is not imported as a module)."""
+    """A metric reader, a family or a reference, loaded from its file (a
+    metric's name may hold dots, so it is not imported as a module).  It
+    is entered in ``sys.modules`` under its own name before its code
+    runs, as ``dataclasses`` needs."""
     path = _path(kind, name, root)
     spec = importlib.util.spec_from_file_location(
         f"hfxbench_{kind}_{name.replace('.', '_').replace('-', '_')}", path)
     module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
     spec.loader.exec_module(module)
     return module
 

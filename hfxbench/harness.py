@@ -20,6 +20,7 @@ the :class:`Run` and return a number or None.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -31,7 +32,6 @@ from typing import Optional
 import numpy as np
 
 from hfxbench import catalog, check, model, slo, traffic
-from hfxbench.roofline import Dims
 from hfxbench.trace import SubWindow, breakdown
 from hfxbench.traffic import Req
 
@@ -85,9 +85,10 @@ class Run:
     trace: Optional[dict]   # the sub-window's summary (traced runs)
     traced_from: Optional[float] = None   # when the sub-window began
 
-    @property
-    def dims(self) -> Dims:
-        return Dims.of(self.config)
+    @functools.cached_property
+    def counts(self):
+        """The configuration's FLOP and byte counts (its family's)."""
+        return model.family(self.config).counts(self.config)
 
     def due_in_window(self) -> list[Req]:
         return [r for r in self.reqs if 0.0 <= r.due < self.window_s]

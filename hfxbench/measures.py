@@ -65,15 +65,15 @@ def decode_iter_ms(run):
     return 1e3 * sum(s.span for s in steps) / iters if iters else None
 
 
-def _prefill_bound(dims, s) -> tuple[float, float]:
+def _prefill_bound(counts, s) -> tuple[float, float]:
     """(FLOPs, least seconds) of a prefill step's real work."""
-    flops = roofline.prefill_flops(dims, s.rows, s.n_completed)
-    return flops, roofline.bound_s(flops, roofline.prefill_bytes(dims, s.rows))
+    flops = counts.prefill_flops(s.rows, s.n_completed)
+    return flops, roofline.bound_s(flops, counts.prefill_bytes(s.rows))
 
 
-def _decode_bound(dims, s) -> float:
-    return sum(roofline.bound_s(roofline.decode_iter_flops(dims, emit),
-                                roofline.decode_iter_bytes(dims, emit))
+def _decode_bound(counts, s) -> float:
+    return sum(roofline.bound_s(counts.decode_iter_flops(emit),
+                                counts.decode_iter_bytes(emit))
                for emit, _ in s.decode_iters() if emit)
 
 
@@ -82,41 +82,41 @@ def mfu_prefill(run):
     span = sum(s.span for s in steps)
     if not span:
         return None
-    flops = sum(_prefill_bound(run.dims, s)[0] for s in steps)
+    flops = sum(_prefill_bound(run.counts, s)[0] for s in steps)
     return 100.0 * flops / (roofline.H100_BF16_FLOPS * span)
 
 
 def mfu_decode(run):
     steps = run.window_steps("decode")
     span = sum(s.span for s in steps)
-    return (100.0 * sum(_decode_bound(run.dims, s) for s in steps) / span
+    return (100.0 * sum(_decode_bound(run.counts, s) for s in steps) / span
             if span else None)
 
 
 def mfu_window(run):
-    dims = run.dims
+    counts = run.counts
     least = 0.0
     for s in run.window_steps():
         if s.kind == "decode":
-            least += _decode_bound(dims, s)
+            least += _decode_bound(counts, s)
         elif s.kind == "prefill_chunk":
-            least += _prefill_bound(dims, s)[1]
+            least += _prefill_bound(counts, s)[1]
     return 100.0 * least / run.span_s if run.span_s > 0 else None
 
 
 def paged_decode_roofline(run):
     """The paged decode attention calls of the profiled decode steps:
-    their least time (bytes of the K and V each row's length covers, of
-    q and out; one call a layer an iteration) over the summed device
-    time of the call's functions."""
+    their least time (each call of an iteration as the family counts
+    it: bytes of the K and V each row's length covers, of q and out)
+    over the summed device time of the call's functions."""
     if run.trace is None:
         return None
-    dims = run.dims
+    counts = run.counts
     least = 0.0
     for s in run.traced_steps("decode"):
         for _, read in s.decode_iters():
-            flops, nbytes = roofline.paged_decode_call(dims, read)
-            least += dims.layers * roofline.bound_s(flops, nbytes)
+            least += sum(roofline.bound_s(flops, nbytes)
+                         for flops, nbytes in counts.paged_decode_calls(read))
     device = sum(v["s"] for name, v in run.trace["kernels"].items()
                  if any(k in name for k in PAGED_DECODE_KERNELS))
     return 100.0 * least / device if least and device else None

@@ -40,6 +40,8 @@ def test_new_files_are_found_without_an_edit(tmp_path):
     (root / "metrics" / "engine.steps.py").write_text(
         "def read(run):\n    return len(run.window_steps())\n")
     found = catalog.listing(root)
+    assert set(found) == set(catalog.KINDS)
+    assert "qwen1_5" in found["families"] and "qwen1_5" in found["reference"]
     assert "four_task_burst" in found["traffic"]
     assert "qwen7b.four_task_burst" in found["cells"]
     assert "engine.steps" in found["metrics"]
@@ -67,6 +69,10 @@ def test_benchmark_json_names_what_the_files_provide():
         assert cfg["source"] == c["source"] and cfg["reduced"] == c["reduced"]
         assert cfg["reference"] in found["reference"]
         assert any(w["config"] == c["name"] for w in bench["workloads"])
+    for name in found["configs"]:   # those with no cell too
+        cfg = catalog.load_json("configs", name)
+        assert cfg["family"] in found["families"]
+        assert cfg["reference"] in found["reference"]
     for w in bench["workloads"]:
         assert NAME.match(w["name"]) and w["chips"] == 1
         assert len(w["why"]) <= 200

@@ -21,7 +21,7 @@ run = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(run)
 from hfxbench import calibrate, catalog, check, harness, sweep
 import repro_torch.serving.engine, repro_torch.models.build
-for kind in ("metrics", "reference"):
+for kind in ("metrics", "families", "reference"):
     for name in catalog.listing()[kind]:
         catalog.load_module(kind, name)
 print(json.dumps(sorted({{m.split(".")[0] for m in sys.modules}})))

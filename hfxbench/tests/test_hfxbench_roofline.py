@@ -3,7 +3,7 @@ and the readers over a hand-made run."""
 
 import pytest
 
-from hfxbench import catalog, roofline
+from hfxbench import catalog, model, roofline
 from hfxbench.harness import Run, Step
 from hfxbench.tests.conftest import smoke_config
 
@@ -16,7 +16,9 @@ ATTN = 4 * 2 * 4 * 16                  # per key, all layers and heads
 
 
 def dims():
-    return roofline.Dims.of(smoke_config())
+    """The smoke config's counts, as its family (qwen1_5) gives them."""
+    cfg = smoke_config()
+    return model.family(cfg).counts(cfg)
 
 
 def test_dims():
@@ -31,19 +33,19 @@ def test_prefill_counts():
     rows = [(0, 10), (5, 3)]            # causal keys: 55 and 15 + 6
     assert roofline.causal_keys(0, 10) == 55
     assert roofline.causal_keys(5, 3) == 21
-    assert roofline.prefill_flops(dims(), rows, 1) == \
+    assert dims().prefill_flops(rows, 1) == \
         2 * BODY * 13 + ATTN * 76 + 2 * HEAD == 1_995_264
-    assert roofline.prefill_bytes(dims(), rows) == \
+    assert dims().prefill_bytes(rows) == \
         (BODY + HEAD) * 2 + KV_TOKEN * 18 == 185_344
 
 
 def test_decode_counts():
-    assert roofline.decode_iter_flops(dims(), [5, 9]) == \
+    assert dims().decode_iter_flops([5, 9]) == \
         2 * (BODY + HEAD) * 2 + ATTN * 14 == 368_640
-    assert roofline.decode_iter_bytes(dims(), [5, 9]) == \
+    assert dims().decode_iter_bytes([5, 9]) == \
         (BODY + HEAD) * 2 + KV_TOKEN * 14 == 184_320
     # one layer's call; an idle row (length 0) reads nothing
-    flops, nbytes = roofline.paged_decode_call(dims(), [5, 0, 9])
+    flops, nbytes = dims().paged_decode_call([5, 0, 9])
     assert flops == 4 * 4 * 16 * 14 == 3584
     assert nbytes == 2 * 2 * 16 * 2 * 14 + 2 * 4 * 16 * 2 * 2 == 2304
     assert roofline.bound_s(989e12, 0.0) == pytest.approx(1.0)
@@ -86,14 +88,14 @@ def test_readers_on_a_hand_made_run():
     assert read["mfu.prefill"](run) == pytest.approx(
         100 * 1_995_264 / (989e12 * 0.2))
     d = dims()
-    least = [roofline.bound_s(roofline.decode_iter_flops(d, e),
-                              roofline.decode_iter_bytes(d, e))
+    least = [roofline.bound_s(d.decode_iter_flops(e),
+                              d.decode_iter_bytes(e))
              for e in ([5, 9], [6, 10], [7, 11])]
     assert read["mfu.decode"](run) == pytest.approx(100 * sum(least) / 0.3)
     prefill_least = roofline.bound_s(1_995_264, 185_344)
     assert read["mfu.window"](run) == pytest.approx(
         100 * (sum(least) + prefill_least) / 0.6)
-    call = roofline.paged_decode_call(d, [8, 12])
+    call = d.paged_decode_call([8, 12])
     assert read["paged_decode_attention_roofline.tail"](run) == \
         pytest.approx(100 * 2 * roofline.bound_s(*call) / 1e-6)
     assert read["device.idle_share.tail"](run) == pytest.approx(75.0)
