@@ -22,6 +22,15 @@ found from the name alone:
 A configuration of a new architecture is its config file, its family
 and its reference, with a cell and a mix as for any other.
 
+A counter that only the program knows (say, the experts a step's
+routing touched) reaches a metric file as an attribute of its step's
+``engine.dispatch`` span: the program's code adds it there
+(``InferenceEngine._timed``'s attributes), and a traced run hands each
+step those attributes as ``Step.dispatch`` (``spans.py``).  The metric
+file reads them from the run's steps, next to the kernels' device time
+in ``run.trace["kernels"]``; in an untraced run, or where the spans and
+the steps do not pair, ``Step.dispatch`` is None and it returns None.
+
 Adding one of them is adding a file: nothing here lists them.
 """
 

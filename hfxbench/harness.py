@@ -15,6 +15,13 @@ served: ``(start, take)`` of each prompt chunk of a prefill step (read
 from the requests' prefill progress), ``(position, tokens emitted)`` of
 each row of a decode step.  Metric readers (``metrics/<name>.py``) take
 the :class:`Run` and return a number or None.
+
+A traced run (``--trace 1``) also records the program's own spans
+(``repro_torch.serving.tracing``) from the end of the warm-up to the
+loop's end: ``Run.spans``, and on each step the attributes of its
+``engine.dispatch`` span, ``Step.dispatch``, and the seconds of its
+spans, ``Step.parts`` (``hfxbench/spans.py``).  An
+untraced run leaves the recorder off.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ from typing import Optional
 
 import numpy as np
 
-from hfxbench import catalog, check, model, slo, traffic
+from hfxbench import catalog, check, model, slo, spans, traffic
 from hfxbench.trace import SubWindow, breakdown
 from hfxbench.traffic import Req
 
@@ -54,6 +61,11 @@ class Step:
     rows: list            # prefill: (start, take); decode: (pos0, emitted)
     emitted: int          # tokens delivered to clients by the step
     n_completed: int = 0  # prefill rows whose prompt completed
+    # traced runs: the attributes of the step's engine.dispatch span
+    # ({} for none), and the seconds of its engine.step span and of each
+    # of its parts; None where the program's spans were not recorded
+    dispatch: Optional[dict] = None
+    parts: Optional[dict] = None
 
     @property
     def span(self) -> float:
@@ -84,6 +96,7 @@ class Run:
     steps: list[Step]
     trace: Optional[dict]   # the sub-window's summary (traced runs)
     traced_from: Optional[float] = None   # when the sub-window began
+    spans: Optional[list] = None   # the program's spans (traced runs)
 
     @functools.cached_property
     def counts(self):
@@ -148,17 +161,16 @@ def _drive(engine, by_rid: dict, t: float, steps: list, pending: dict,
                       len(ev.get("token_events", ())), n_completed=int(ev.get("n_completed", 0))))
 
 
-def open_loop(engine, reqs: list[Req], *, window_s: float, preroll_s: float,
+def open_loop(engine, reqs: list[Req], *, window_s: float, base: float,
               drain_s: Optional[float], sub: Optional[SubWindow],
               device) -> tuple[list[Step], float, dict]:
     """Run the schedule against ``engine``; times are seconds from the
-    window's opening.  ``drain_s`` None: stop when the window closes;
+    window's opening, ``base`` on ``time.perf_counter`` (a pre-roll runs
+    before it).  ``drain_s`` None: stop when the window closes;
     else keep stepping after it (no more submissions) until every
     request is finished or ``drain_s`` has passed.  Returns the steps,
     the stop time and the engine's requests by id."""
     from repro_torch.core.request import Request
-
-    base = time.perf_counter() + preroll_s
 
     def clock():
         return time.perf_counter() - base
@@ -269,18 +281,20 @@ def window(cell: dict, engine, mix: dict, cfg: dict, *, seed: int,
            opened=None):
     """The cell's schedule for ``seed`` served by ``engine``: (requests,
     steps, stop time, the engine's requests, the engine's queues when
-    the loop stopped).  ``opened`` is called when the set-up ends: the
-    window opens then, or after the cell's pre-roll."""
+    the loop stopped).  ``opened`` is called when the set-up ends, with
+    the window's opening on ``time.perf_counter``: then, or after the
+    cell's pre-roll."""
     preroll = cell.get("preroll_s", 0.0)
     reqs = traffic.schedule(mix, rate=cell["rate_rps"], window_s=seconds,
                             seed=seed, vocab=cfg["vocab_size"],
                             preroll_s=preroll,
                             preroll_burst=cell.get("preroll_burst", 0))
     _sync(device)
+    base = time.perf_counter() + preroll
     if opened is not None:
-        opened()
+        opened(base)
     steps, end, engine_reqs = open_loop(
-        engine, reqs, window_s=seconds, preroll_s=preroll,
+        engine, reqs, window_s=seconds, base=base,
         drain_s=cell["drain_s"] if cell["judge"] == "tail" else None,
         sub=sub, device=device)
     at_close = {"queued": len(engine.queue),
@@ -309,16 +323,16 @@ def run_cell(cell: dict, cfg: dict, mix: dict, *, seed: int,
     engine = warm_up(mdl, cfg, seed, sub)
     marks.append(("warm-up and fit", time.perf_counter()))
     judge_tail = cell["judge"] == "tail"
-    setup_s = None
+    base = None
 
-    def opened():   # the window opens after the pre-roll
-        nonlocal setup_s
-        setup_s = (time.perf_counter() - t_start
-                   + cell.get("preroll_s", 0.0))
+    def opened(at):   # the window opens after the pre-roll
+        nonlocal base
+        base = at
 
-    reqs, steps, end, engine_reqs, at_close = window(
-        cell, engine, mix, cfg, seed=seed, seconds=seconds, sub=sub,
-        device=device, opened=opened)
+    with spans.recording(trace) as recorded:
+        reqs, steps, end, engine_reqs, at_close = window(
+            cell, engine, mix, cfg, seed=seed, seconds=seconds, sub=sub,
+            device=device, opened=opened)
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     n_bad = mismatches(reqs, engine_reqs)
     del engine, mdl
@@ -327,9 +341,22 @@ def run_cell(cell: dict, cfg: dict, mix: dict, *, seed: int,
         torch.cuda.empty_cache()
     marks.append(("window and drain", time.perf_counter()))
     run = Run(cell=cell, config=cfg, window_s=seconds, end_s=end,
-              setup_s=setup_s, reqs=reqs, steps=steps,
+              setup_s=base - t_start, reqs=reqs, steps=steps,
               trace=sub.summary() if sub is not None else None,
-              traced_from=sub.opened_at if sub is not None else None)
+              traced_from=sub.opened_at if sub is not None else None,
+              spans=(None if recorded is None
+                     else spans.window_spans(recorded, base)))
+    if run.spans is not None:
+        unpaired = spans.attach(steps, run.spans)
+        if unpaired:
+            print(f"spans: no step gets its spans' readings: "
+                  f"{unpaired}", file=log)
+    if run.trace is not None:
+        print(f"trace: sub-window {run.trace['window_s']:.6f} s on the "
+              f"trace's clock, {run.trace['wall_s']:.6f} s on the host's; "
+              f"{run.trace['outside_s']:.6f} s of device time stamped "
+              f"outside its marker; a device operation stamped up to "
+              f"{run.trace['early_s']:.6f} s before its launch", file=log)
     marks.append(("trace read", time.perf_counter()))
     ok, compared, n_cmp = check.judge(weights, cfg, cell, reqs, n_bad,
                                       seed, device)

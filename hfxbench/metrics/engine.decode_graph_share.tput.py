@@ -1,0 +1,4 @@
+"""Share (%) of the decode iterations that replayed the captured decode
+graph (their dispatch's ``graph``; throughput cells)."""
+
+from hfxbench.spans import decode_graph_share as read  # noqa: F401

@@ -1,7 +1,9 @@
 """Readings of the program's own spans (``repro_torch.serving.tracing``)
 in a traced run.
 
-Two inputs, both absent from a run that did not record them:
+The harness turns the program's recorder on for a traced run's window
+(:func:`recording`) and leaves it off otherwise, so that a run judged
+end to end executes none of it.  A traced run then holds:
 
 - ``run.spans``: the recorder's spans, drained after the loop, with
   ``start`` and ``end`` in seconds from the window's opening (as a
@@ -9,23 +11,51 @@ Two inputs, both absent from a run that did not record them:
   ``engine.step`` over ``engine.schedule``, ``engine.dispatch``,
   ``engine.sync`` and ``engine.commit``; a ``request.queue`` span
   carries its request id.
-- ``run.trace["idle_by_span"]``: the profiled sub-window's idle seconds
-  by the engine span whose ``user_annotation`` event holds each gap's
-  middle, ``none`` where no engine span does: :func:`idle_by_span`.
+- ``Step.dispatch``: the attributes of each step's ``engine.dispatch``
+  span (``{}`` for a step that dispatched nothing), the step's counters;
+  ``Step.parts``: the seconds of its ``engine.step`` span and of each of
+  its parts (:func:`attach`).  Where the spans and the steps do not pair
+  one to one, both stay None on every step.
+- ``run.trace["idle_by_span"]``: the profiled sub-window's idle seconds,
+  on the trace's own clock, by the engine span whose ``user_annotation``
+  event holds each idle interval's middle, ``none`` where no engine span
+  does; they add up to the sub-window's idle time, ``window_s`` less
+  ``busy_s`` (:func:`hfxbench.trace.summarize`).
 
-The harness records neither yet: each reader returns None until it
-does.  As the other readers, step readings take the spans that began in
-the window before the sub-window, device readings the sub-window alone;
-shares are in percent.
+A reader returns None where its input is missing: an untraced run, a
+program without the recorder, a CPU trace.  As the other readers, step
+readings take the steps (``Run.window_steps``) and request spans that
+began in the window before the sub-window, device readings the
+sub-window alone; shares are in percent.
 """
 
 from __future__ import annotations
 
-from hfxbench import slo
-from hfxbench.trace import DEVICE_CATS, _idle_by_host, _union
+import contextlib
+from typing import Optional
 
-ENGINE = "engine."
-OUTSIDE = "none"   # idle under no engine span: the harness's loop
+from hfxbench.trace import ENGINE, OUTSIDE
+
+
+@contextlib.contextmanager
+def recording(on: bool):
+    """The program's span recorder on inside the block where ``on``;
+    yields the list that holds what it recorded once the block ends (None
+    where not ``on``).  The recorder is off after the block, also when
+    the block raises."""
+    if not on:
+        yield None
+        return
+    from repro_torch.serving import tracing
+
+    tracing.drain()        # nothing recorded before the block
+    tracing.enable()
+    out: list = []
+    try:
+        yield out
+    finally:
+        out.extend(tracing.drain())
+        tracing.disable()
 
 
 def window_spans(spans: list, base: float) -> list:
@@ -35,61 +65,65 @@ def window_spans(spans: list, base: float) -> list:
             for s in spans]
 
 
-def idle_by_span(events: list[dict]) -> dict:
-    """Idle seconds between the device's operations, by the innermost
-    engine span (its ``user_annotation`` event) that holds each gap's
-    middle, or ``none``."""
-    dev = [e for e in events if e.get("cat") in DEVICE_CATS
-           and e.get("ph") == "X"]
-    busy = _union([(e["ts"], e["ts"] + e["dur"]) for e in dev])
-    notes = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-             if e.get("cat") == "user_annotation" and e.get("ph") == "X"
-             and e["name"].startswith(ENGINE)]
-    out = _idle_by_host(busy, notes)
-    if "python" in out:    # _idle_by_host's name for "no holder"
-        out[OUTSIDE] = out.pop("python")
-    return out
-
-
-def _spans(run):
-    spans = getattr(run, "spans", None)
-    return None if spans is None else [
-        s for s in spans if 0.0 <= s.start < run.span_s]
-
-
-def _steps(run, kind=None):
-    """(step span, {part name: part span}) of the window's steps."""
-    spans = _spans(run)
-    if spans is None:
-        return None
+def attach(steps: list, spans: list) -> Optional[str]:
+    """Give each step the attributes of its ``engine.dispatch`` span
+    (``{}`` where it dispatched nothing), and the seconds of its
+    ``engine.step`` span and of each of its parts: the ``engine.step``
+    spans pair with the steps one to one, in order, each of the step's
+    kind.  Where they do not, no step gets either, and the reason is
+    returned."""
+    roots = [s for s in spans if s.name == "engine.step"]
+    if len(roots) != len(steps):
+        return (f"{len(roots)} engine.step spans against {len(steps)} "
+                f"steps")
+    for i, (span, step) in enumerate(zip(roots, steps)):
+        if span.attrs.get("kind") != step.kind:
+            return (f"step {i} is {step.kind!r} but its span is "
+                    f"{span.attrs.get('kind')!r}")
     parts: dict = {}
-    for s in run.spans:
+    for s in spans:
         if s.parent is not None and s.name.startswith(ENGINE):
             parts.setdefault(s.parent, {})[s.name] = s
-    return [(s, parts.get(s.sid, {})) for s in spans
-            if s.name == "engine.step"
-            and (kind is None or s.attrs.get("kind") == kind)]
+    for span, step in zip(roots, steps):
+        mine = parts.get(span.sid, {})
+        step.dispatch = (dict(mine["engine.dispatch"].attrs)
+                         if "engine.dispatch" in mine else {})
+        step.parts = {n: p.end - p.start for n, p in mine.items()}
+        step.parts[span.name] = span.end - span.start
+    return None
 
 
-def queue_wait_ms(run, q: float = 80):
-    """The q-th percentile, over the requests due in the window, of the
-    time each spent in the engine's queue (its ``request.queue`` spans
-    summed: a preempted request queues again)."""
-    spans = _spans(run)
-    if spans is None:
+def _counted(run, kind: Optional[str] = None):
+    """The window's steps (of ``kind``) where every one carries its
+    spans' readings, else None."""
+    steps = run.window_steps(kind)
+    if not steps or any(s.dispatch is None for s in steps):
+        return None
+    return steps
+
+
+def queue_wait_ms(run):
+    """The mean, over the requests due in the window, of the time each
+    spent in the engine's queue (its ``request.queue`` spans that began
+    before the sub-window, summed: a preempted request queues again).  A
+    mean, not a tail: most requests are admitted at the next step, so a
+    high percentile falls on the edge between that and a wait of one
+    decode pass."""
+    if run.spans is None:
         return None
     due = {r.rid for r in run.due_in_window()}
     waits: dict = {}
-    for s in spans:
-        if s.name == "request.queue" and s.rid in due:
+    for s in run.spans:
+        if (s.name == "request.queue" and s.rid in due
+                and 0.0 <= s.start < run.span_s):
             waits[s.rid] = waits.get(s.rid, 0.0) + s.end - s.start
-    return 1e3 * slo.percentile(list(waits.values()), q) if waits else None
+    return 1e3 * sum(waits.values()) / len(waits) if waits else None
 
 
 def _prefill_dispatches(run):
-    steps = _steps(run, "prefill_chunk")
-    return None if steps is None else [
-        p["engine.dispatch"].attrs for _, p in steps if "engine.dispatch" in p]
+    steps = _counted(run, "prefill_chunk")
+    return None if steps is None else [s.dispatch for s in steps
+                                       if s.dispatch]
 
 
 def prefill_lane_use(run):
@@ -108,28 +142,37 @@ def prefill_pair_use(run):
             if pairs else None)
 
 
+def decode_graph_share(run):
+    """Decode iterations that replayed the engine's captured decode
+    iteration (their step's dispatch has ``graph`` 1), over all the
+    decode steps' iterations."""
+    steps = _counted(run, "decode")
+    if steps is None:
+        return None
+    iters = sum(s.k for s in steps)
+    return (100.0 * sum(s.k for s in steps if s.dispatch.get("graph") == 1)
+            / iters if iters else None)
+
+
 def decode_enqueue_ms(run):
     """The decode steps' summed ``engine.dispatch`` (the host enqueueing
     every launch of the pass) over their iterations."""
-    steps = _steps(run, "decode")
-    if not steps:
+    steps = _counted(run, "decode")
+    if steps is None:
         return None
-    iters = sum(s.attrs["k"] for s, _ in steps)
-    spent = sum(p["engine.dispatch"].end - p["engine.dispatch"].start
-                for _, p in steps if "engine.dispatch" in p)
+    iters = sum(s.k for s in steps)
+    spent = sum(s.parts.get("engine.dispatch", 0.0) for s in steps)
     return 1e3 * spent / iters if iters else None
 
 
 def host_ms_per_step(run):
     """Mean time of a step outside its dispatch and its wait for the
     device: scheduling, and the commit of what it returned."""
-    steps = _steps(run)
-    if not steps:
+    steps = _counted(run)
+    if steps is None:
         return None
-    own = [s.end - s.start - sum(p[n].end - p[n].start
-                                 for n in ("engine.dispatch", "engine.sync")
-                                 if n in p)
-           for s, p in steps]
+    own = [s.parts["engine.step"] - s.parts.get("engine.dispatch", 0.0)
+           - s.parts.get("engine.sync", 0.0) for s in steps]
     return 1e3 * sum(own) / len(own)
 
 

@@ -5,11 +5,17 @@ that the trace stays small; it is written as a chrome trace to a
 temporary file, read back and deleted.  The reading is that of
 ``chip_smoke.py``'s ``trace_summary``, copied: busy time is the union of
 the device's operation intervals (kernels, and here also the device's
-copies and fills), kernel time is summed by name.  Each idle gap
-between device operations is put down to the host call that was
-running at its middle: the innermost CPU op or CUDA runtime call whose
-interval holds it, or ``python`` where none does.
-"""
+copies and fills), kernel time is summed by name.  The sub-window is
+read on the trace's own clock: a ``record_function`` range (``MARK``)
+opens after the profiler starts and closes after the last step's sync,
+and idle time is taken inside it, widened where the trace stamps a
+device operation beyond it.  Each idle interval (between device
+operations, and from the window's edges to the first and last of them)
+is put down to the host call that was running at its middle: the
+innermost CPU op or CUDA runtime call whose interval holds it, or
+``python`` where none does; and again to the program's innermost engine
+span (``repro_torch.serving.tracing``, a ``user_annotation`` event) that
+holds it, or ``none`` where none does."""
 
 from __future__ import annotations
 
@@ -23,6 +29,9 @@ from collections import defaultdict
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "cuda_runtime")
+ENGINE = "engine."   # the program's engine spans
+OUTSIDE = "none"     # idle under no engine span: the harness's loop
+MARK = "hfxbench.sub_window"   # the sub-window as the trace records it
 
 
 class SubWindow:
@@ -35,6 +44,7 @@ class SubWindow:
     def __init__(self, start_s: float, steps: int, cuda: bool):
         self.start_s, self.steps, self.cuda = start_s, steps, cuda
         self.prof = None      # recording
+        self.mark = None      # the sub-window's record_function range
         self.done = None      # recorded
         self.taken = 0
         self.wall = None      # (start, stop) on the host's clock
@@ -48,6 +58,14 @@ class SubWindow:
         if self.cuda:
             acts.append(ProfilerActivity.CUDA)
         return profile(activities=acts)
+
+    @staticmethod
+    def _mark():
+        from torch.profiler import record_function
+
+        rf = record_function(MARK)
+        rf.__enter__()
+        return rf
 
     def warm(self, fn) -> None:
         """Start and stop the profiler once around ``fn`` during set-up,
@@ -65,6 +83,7 @@ class SubWindow:
             sync()
             self.prof = self._profile()
             self.prof.__enter__()
+            self.mark = self._mark()
             self.wall = [time.perf_counter(), None]
             self.opened_at = now
 
@@ -82,6 +101,7 @@ class SubWindow:
             return
         sync()
         self.wall[1] = time.perf_counter()
+        self.mark.__exit__(None, None, None)
         self.prof.__exit__(None, None, None)
         self.stop_cost_s = time.perf_counter() - self.wall[1]
         self.done, self.prof = self.prof, None
@@ -110,43 +130,107 @@ def _union(spans: list[tuple[float, float]]) -> list[tuple[float, float]]:
     return [(a, b) for a, b in out]
 
 
-def _idle_by_host(busy: list[tuple[float, float]],
-                  host: list[tuple[float, float, str]]) -> dict:
-    """Idle seconds between the busy spans, by the innermost host call
-    (the latest-starting one) whose interval holds each gap's middle."""
+def _window(events: list[dict]) -> tuple[float, float] | None:
+    """The sub-window on the trace's clock (us): its marker's interval."""
+    for e in events:
+        if (e.get("cat") == "user_annotation" and e.get("ph") == "X"
+                and e.get("name") == MARK):
+            return e["ts"], e["ts"] + e["dur"]
+    return None
+
+
+def _gaps(busy: list[tuple[float, float]], lo: float,
+          hi: float) -> list[tuple[float, float]]:
+    """The intervals of [lo, hi] in which no device operation ran."""
+    out, a = [], lo
+    for b0, b1 in busy:
+        if b0 > a:
+            out.append((a, b0))
+        a = max(a, b1)
+    if hi > a:
+        out.append((a, hi))
+    return out
+
+
+def _by_holder(gaps: list[tuple[float, float]],
+               holders: list[tuple[float, float, str]], none: str) -> dict:
+    """Idle seconds of ``gaps``, by the innermost holder (the
+    latest-starting one) whose interval holds each gap's middle, or
+    ``none``."""
     out: dict[str, float] = defaultdict(float)
-    gaps = sorted(((a + b) / 2, (b - a) / 1e6)
-                  for (_, a), (b, _) in zip(busy, busy[1:]) if b > a)
-    host = sorted(host)
+    mids = sorted(((a + b) / 2, (b - a) / 1e6) for a, b in gaps)
+    holders = sorted(holders)
     heap: list = []
     i = 0
-    for mid, length in gaps:
-        while i < len(host) and host[i][0] <= mid:
-            heapq.heappush(heap, (-host[i][0], host[i][1], host[i][2]))
+    for mid, length in mids:
+        while i < len(holders) and holders[i][0] <= mid:
+            heapq.heappush(heap, (-holders[i][0], holders[i][1],
+                                  holders[i][2]))
             i += 1
         while heap and heap[0][1] < mid:
             heapq.heappop(heap)
-        out[heap[0][2] if heap else "python"] += length
+        out[heap[0][2] if heap else none] += length
     return dict(out)
+
+
+def _held(events: list[dict], cats: tuple, prefix: str = "") -> list:
+    return [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+            if e.get("cat") in cats and e.get("ph") == "X"
+            and e["name"].startswith(prefix)]
+
+
+def _early(events: list[dict], ops: list[dict]) -> float:
+    """How far (us) the trace stamps a device operation before the CUDA
+    runtime call that launched it (their ``correlation``): a lower bound
+    on how far its device stamps stray from its host stamps."""
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") == "cuda_runtime"
+              and "correlation" in e.get("args", {})}
+    return max([0.0] + [launch[c] - e["ts"] for e in ops
+                        if (c := e.get("args", {}).get("correlation"))
+                        in launch])
 
 
 def summarize(events: list[dict], wall_s: float) -> dict:
     """Busy seconds, device operations by name (seconds, count), and
-    idle seconds by what the host was doing."""
-    dev = [e for e in events if e.get("cat") in DEVICE_CATS
-           and e.get("ph") == "X"]
-    busy_spans = _union([(e["ts"], e["ts"] + e["dur"]) for e in dev])
-    busy = sum(b - a for a, b in busy_spans)
+    idle seconds by what the host was doing and by engine span, all on
+    the trace's clock.  The window is the sub-window's marker, widened
+    to hold every device operation (they all ran inside it: it opens and
+    closes on a synchronized device), or in a trace without the marker
+    the operations' own extent: ``window_s`` is its length, and each
+    idle split adds up to ``window_s`` less ``busy_s``.  ``wall_s`` is
+    the sub-window on the host's clock; ``outside_s``, the device time
+    stamped outside the marker, and ``early_s``, how far a device
+    operation is stamped before its launch, read how far the trace's
+    device stamps stray from its host stamps, which the split by holder
+    cannot correct."""
+    ops = [e for e in events
+           if e.get("cat") in DEVICE_CATS and e.get("ph") == "X"]
+    busy_spans = _union([(e["ts"], e["ts"] + e["dur"]) for e in ops])
+    win = _window(events)
+    edges = ([win] if win else []) + busy_spans[:1] + busy_spans[-1:]
+    lo = min((a for a, _ in edges), default=0.0)
+    hi = max((b for _, b in edges), default=0.0)
     by_name: dict[str, list] = {}
-    for e in dev:
+    for e in ops:
         row = by_name.setdefault(e["name"], [0.0, 0])
         row[0] += e["dur"] / 1e6
         row[1] += 1
-    host = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
-            if e.get("cat") in HOST_CATS and e.get("ph") == "X"]
-    return {"busy_s": busy / 1e6, "window_s": wall_s,
-            "kernels": {k: {"s": v[0], "n": v[1]} for k, v in by_name.items()},
-            "idle_by_host": _idle_by_host(busy_spans, host)}
+    gaps = _gaps(busy_spans, lo, hi)
+    return {"busy_s": sum(b - a for a, b in busy_spans) / 1e6,
+            "window_s": (hi - lo) / 1e6, "wall_s": wall_s,
+            "outside_s": (sum(max(0.0, min(b, win[0]) - a)
+                              + max(0.0, b - max(a, win[1]))
+                              for a, b in busy_spans) / 1e6
+                          if win else 0.0),
+            "early_s": _early(events, ops) / 1e6,
+            "kernels": {k: {"s": v[0], "n": v[1]}
+                        for k, v in by_name.items()},
+            "idle_by_host": _by_holder(gaps, _held(events, HOST_CATS),
+                                       "python"),
+            "idle_by_span": _by_holder(
+                gaps, _held(events, ("user_annotation",), ENGINE),
+                OUTSIDE)}
 
 
 def breakdown(summary: dict) -> dict:
